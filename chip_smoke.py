@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke test of warpsense_tpu_torch on one CUDA GPU (an H100 for sm_90a).
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; nothing falls back to the CPU):
+1. record the card and the toolchain;
+2. build the CUDA kernels from warpsense_tpu_torch/csrc with nvcc;
+3. fusion kernel K1 against its plain PyTorch version at the full
+   625 x 625 x 235 window with a 128 x 1024 scanner: two level fusions and
+   one at a 4 degree tilt, 0 value/weight mismatches required;
+4. fields kernel K2 (packed and exact) against its plain version on the
+   fused map, 0 mismatches required;
+5. kernel and plain times (CUDA events, median of 7) with achieved GB/s;
+6. WarpsenseApp(device="cuda") in fast mode at the application config:
+   10 synthetic scans with one or more map shifts, then terminate();
+   finite poses, ATE below ATE_BOUND_M, both kernels launched;
+7. torch.profiler over 4 more app scans: device busy share and top
+   kernels (trace in chiprun_out/app_trace.json).
+
+The last three lines are one JSON object describing the kernels, the
+card's name and power limit as nvidia-smi prints them, and
+{"ok": true, "device": {...}}.  Exits non-zero without printing a result
+when no CUDA device is available or the package is missing.
+"""
+from __future__ import annotations
+
+import faulthandler
+import importlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+FULL = dict(size=(625, 625, 235), tau=600, res=64, n=32766,
+            channels=128, columns=1024, vfov_deg=45.0)
+APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
+           channels=128, columns=1024, capacity=32766, step_m=0.1,
+           shift_m=0.35, noise=0.002)
+# ATE (translation RMSE, no alignment) of the 10-scan walk.  The JAX app on
+# the same scans (CPU) reaches the value recorded in CHANGES.md; the bound
+# leaves room for float-order differences in registration.
+ATE_BOUND_M = 0.02
+TILT_DEG = 4.0
+REPS = 7
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+# ----------------------------------------------------------------- phase 1
+def _imports(name: str) -> bool:
+    """Whether ``import name`` works here (recorded, not relied on)."""
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def record_card(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    from warpsense_tpu_torch.kernels import _build
+    nvcc = _build.find_nvcc()
+    nvcc_v = subprocess.run([nvcc, "--version"], capture_output=True,
+                            text=True, check=True).stdout.strip()
+    info = {
+        "nvidia_smi": smi[0],
+        "device": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "nvcc": nvcc, "nvcc_version": nvcc_v.splitlines()[-1],
+        "python": sys.version.split()[0],
+        "triton": _imports("triton"),
+        "h5py": _imports("h5py"),
+    }
+    log("[card]", json.dumps(info))
+    return info
+
+
+# ----------------------------------------------------------------- phase 2
+def build_kernels() -> dict:
+    from warpsense_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    for name in ("fusion", "fields"):
+        _build.load(name)
+    secs = time.perf_counter() - t0
+    log(f"[build] {secs:.2f} s total; per source:",
+        json.dumps(_build.build_seconds))
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[ptxas {name}] {line.strip()}")
+    return dict(_build.build_seconds, total=secs)
+
+
+# ----------------------------------------------------------------- phase 3
+def tilt_rotation(torch, deg: float):
+    a = math.radians(deg)
+    return torch.tensor([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                         [-math.sin(a), 0.0, math.cos(a)]],
+                        dtype=torch.float32)
+
+
+def fusion_cases(torch):
+    """(scanner voxel, rotation, level) of the K1 checks, in order."""
+    eye = torch.eye(3, dtype=torch.float32)
+    return [((0, 0, 0), eye, True), ((1, 1, 0), eye, True),
+            ((0, 0, 0), tilt_rotation(torch, TILT_DEG), False)]
+
+
+def room_points(torch, cfg, device):
+    from warpsense_tpu_torch.io.synthetic import box_room_cloud
+    X, Y, Z = cfg["size"]
+    half = min(X, Y) * cfg["res"] * 45 // 100
+    zhalf = Z * cfg["res"] * 40 // 100
+    pts = torch.as_tensor(box_room_cloud(cfg["n"], half, zhalf),
+                          device=device)
+    return pts, torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+
+
+def check_fusion(torch, cfg, device):
+    """K1 vs plain on identical inputs (one beam table per fusion, fed to
+    both).  Returns (kernel state, per-case report)."""
+    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.map.local_map import clone_state, create_state
+    from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
+                                                         sweep_merge_plain)
+    kw = dict(tau=cfg["tau"], resolution=cfg["res"],
+              channels=cfg["channels"], columns=cfg["columns"],
+              vfov_deg=cfg["vfov_deg"])
+    mw = 32 * 64
+    pts, mask = room_points(torch, cfg, device)
+    st_k = create_state(cfg["size"], cfg["tau"], 0, device=device,
+                        force_odd=False)
+    st_p = clone_state(st_k)
+    report = []
+    for spos, R, level in fusion_cases(torch):
+        spos_t = torch.tensor(spos, dtype=torch.int32, device=device)
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            st_k, pts, mask, spos_t, R, size=cfg["size"], **kw)
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, R, max_weight=mw, level=level,
+                           **kw)
+        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
+                          endpoint, smm, R, max_weight=mw, **kw)
+        dv = int((st_k.value != st_p.value).sum())
+        dw = int((st_k.weight != st_p.weight).sum())
+        err = int((st_k.value.int() - st_p.value.int()).abs().max()) + int(
+            (st_k.weight.int() - st_p.weight.int()).abs().max())
+        fused = int((st_k.weight != 0).sum())
+        case = dict(scanner=list(spos), level=level, value_mismatch=dv,
+                    weight_mismatch=dw, max_abs_err=err, fused_voxels=fused)
+        log("[K1]", json.dumps(case))
+        report.append(case)
+        if dv or dw:
+            raise AssertionError(f"K1 disagrees with its plain version: {case}")
+    if report[-1]["fused_voxels"] == 0:
+        raise AssertionError("K1 fused nothing")
+    return st_k, report
+
+
+# ----------------------------------------------------------------- phase 4
+def check_fields(torch, state, tau):
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.ops.registration import (
+        precompute_fields_packed, precompute_fields_packed2)
+    report = {}
+    k = fields_packed(state, tau=tau)
+    p = precompute_fields_packed(state, tau=tau)
+    report["packed_mismatch"] = int((k.plane != p.plane).sum())
+    k2 = fields_packed(state, tau=tau, exact=True)
+    p2 = precompute_fields_packed2(state)
+    report["exact_mismatch"] = int((k2.plane_a != p2.plane_a).sum()
+                                   + (k2.plane_b != p2.plane_b).sum())
+    report["max_abs_err"] = max(
+        int((k.plane.long() - p.plane.long()).abs().max()),
+        int((k2.plane_a.long() - p2.plane_a.long()).abs().max()),
+        int((k2.plane_b.long() - p2.plane_b.long()).abs().max()))
+    report["valid_codes"] = int(((k.plane >> 24) & 0xFF).ne(0).sum())
+    log("[K2]", json.dumps(report))
+    if report["packed_mismatch"] or report["exact_mismatch"]:
+        raise AssertionError(f"K2 disagrees with its plain version: {report}")
+    if report["valid_codes"] == 0:
+        raise AssertionError("K2 saw no weighted voxel")
+    return report
+
+
+# ----------------------------------------------------------------- phase 5
+def time_ms(torch, fn, setup=None, reps=REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events);
+    ``setup`` runs before each, outside the events."""
+    if setup is not None:
+        setup()
+    fn()                                              # warm-up
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_kernels(torch, cfg, state):
+    """Kernel and plain times at the full window; each fusion starts from
+    a copy of the fused map (the copy is outside the timed region)."""
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.ops.registration import (
+        precompute_fields_packed, precompute_fields_packed2)
+    from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
+                                                         sweep_merge_plain)
+    device = state.value.device
+    kw = dict(tau=cfg["tau"], resolution=cfg["res"],
+              channels=cfg["channels"], columns=cfg["columns"],
+              vfov_deg=cfg["vfov_deg"])
+    mw = 32 * 64
+    pts, mask = room_points(torch, cfg, device)
+    work = [state.value.clone(), state.weight.clone()]
+
+    def reset():
+        work[0].copy_(state.value)
+        work[1].copy_(state.weight)
+
+    out = {}
+    nvox = state.value.numel()
+    cases = fusion_cases(torch)
+    for name, (spos, R, level) in (("level", cases[0]), ("tilt", cases[2])):
+        spos_t = torch.tensor(spos, dtype=torch.int32, device=device)
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            state, pts, mask, spos_t, R, size=cfg["size"], **kw)
+        args = (cx, cy, cz, rng_tab, endpoint, smm, R)
+        k_ms = time_ms(torch, lambda: fusion_sweep_merge(
+            work[0], work[1], *args, max_weight=mw, level=level, **kw),
+            setup=reset)
+        p_ms = time_ms(torch, lambda: sweep_merge_plain(
+            work[0], work[1], *args, max_weight=mw, **kw), setup=reset,
+            reps=5)
+        out[f"fusion_{name}"] = dict(ms=k_ms, plain_ms=p_ms)
+    for exact in (False, True):
+        k_ms = time_ms(torch, lambda: fields_packed(state, tau=cfg["tau"],
+                                                    exact=exact))
+        plain = (lambda: precompute_fields_packed2(state)) if exact else (
+            lambda: precompute_fields_packed(state, tau=cfg["tau"]))
+        p_ms = time_ms(torch, plain, reps=5)
+        out["fields_exact" if exact else "fields_packed"] = dict(
+            ms=k_ms, plain_ms=p_ms)
+    # nominal bytes of one pass: fusion reads and writes int16 value and
+    # weight (8 B/voxel; untouched voxels skip both), fields read 4 B and
+    # write 4 B per plane per voxel
+    nbytes = {"fusion_level": 8 * nvox, "fusion_tilt": 8 * nvox,
+              "fields_packed": 8 * nvox, "fields_exact": 12 * nvox}
+    for k, v in out.items():
+        v["nominal_bytes"] = nbytes[k]
+        v["GBps_at_nominal"] = nbytes[k] / (v["ms"] * 1e-3) / 1e9
+        v["plain_GBps_at_nominal"] = nbytes[k] / (v["plain_ms"] * 1e-3) / 1e9
+        log(f"[time {k}]", json.dumps(v))
+    return out
+
+
+# ----------------------------------------------------------------- phase 6
+def app_params(cfg):
+    from warpsense_tpu_torch.core.config import Params
+    return Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": cfg["res"],
+                "max_weight": 32, "shift": cfg["shift_m"],
+                "update_distance": 0.0},
+        "registration": {"max_iterations": 50, "epsilon": 0.03,
+                         "it_weight_gradient": 0.1, "mode": "fast"},
+        "lidar": {"channels": cfg["channels"],
+                  "hresolution": cfg["columns"]},
+    })
+
+
+def app_scans(cfg):
+    import numpy as np
+
+    from warpsense_tpu_torch.io.synthetic import (BoxWorld, render_scan,
+                                                  walk_trajectory)
+    world = BoxWorld.default()
+    rng = np.random.default_rng(4)
+    gt = walk_trajectory(cfg["scans"], step_m=cfg["step_m"])
+    scans = [render_scan(world, p, channels=cfg["channels"],
+                         columns=cfg["columns"], noise_std=cfg["noise"],
+                         rng=rng) for p in gt]
+    return gt, scans
+
+
+def ate_m(poses_mm, gt) -> float:
+    """Translation RMSE (m) of the app poses (mm, first-scan frame)
+    against ground truth expressed in the first sensor frame."""
+    import numpy as np
+    inv0 = np.linalg.inv(gt[0])
+    err = [np.asarray(p, np.float64)[:3, 3] / 1000.0 - (inv0 @ g)[:3, 3]
+           for p, g in zip(poses_mm, gt)]
+    return float(np.sqrt(np.mean(np.sum(np.square(err), axis=1))))
+
+
+def run_app(torch, cfg, device):
+    """Drive WarpsenseApp through its callbacks (global map in memory);
+    returns the report."""
+    import numpy as np
+
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
+
+    gt, scans = app_scans(cfg)
+    app = WarpsenseApp(app_params(cfg), in_memory_map=True,
+                       capacity=cfg["capacity"], window_size=cfg["size"],
+                       force_odd=False, fusion="auto", sync_shift=True,
+                       device=device, profile=True)
+    ev = RuntimeEvaluator.get_instance()
+    ev.clear()
+    pos0 = app.state.pos.cpu().numpy().copy()
+    poses, iters = [], []
+    fusion_sweep_merge.launches = 0
+    fields_packed.launches = 0
+    t_start = None
+    for i, scan in enumerate(scans):
+        if i == cfg["warmup"]:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        poses.append(app.cloud_callback(scan, 0.1 * i))
+        iters.append(app.last_reg_iters)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    shifted = app.state.pos.cpu().numpy().copy()
+    t0 = time.perf_counter()
+    app.terminate()
+    term_s = time.perf_counter() - t0
+    launches = {"fusion": fusion_sweep_merge.launches,
+                "fields": fields_packed.launches}
+    stages = {r["task"]: r["avg"] / 1000.0 for r in ev.to_rows()}
+    rep = dict(scans=len(scans), timed_scans=len(scans) - cfg["warmup"],
+               scans_per_s=(len(scans) - cfg["warmup"]) / wall,
+               stage_avg_ms=stages, terminate_s=term_s,
+               lm_iterations=iters, window_pos_start=pos0.tolist(),
+               window_pos_end=shifted.tolist(),
+               ate_m=ate_m(poses, gt), launches=launches,
+               finite=bool(np.all(np.isfinite(np.stack(poses)))))
+    log("[app]", json.dumps(rep))
+    if not rep["finite"]:
+        raise AssertionError("non-finite pose")
+    if np.array_equal(pos0, shifted):
+        raise AssertionError("no map shift ran")
+    if not rep["ate_m"] < ATE_BOUND_M:
+        raise AssertionError(f"ATE {rep['ate_m']:.4f} m >= {ATE_BOUND_M} m")
+    if device.type == "cuda" and min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return rep
+
+
+def profile_app(torch, cfg, device, scans=4):
+    """torch.profiler over ``scans`` app scans after a warm-up: device busy
+    share (sum of kernel times over wall time) and the top kernels.  The
+    chrome trace goes to chiprun_out/app_trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
+    gt, all_scans = app_scans(dict(cfg, scans=cfg["warmup"] + scans))
+    app = WarpsenseApp(app_params(cfg), in_memory_map=True,
+                       capacity=cfg["capacity"], window_size=cfg["size"],
+                       force_odd=False, fusion="auto", sync_shift=True,
+                       device=device)
+    for i, scan in enumerate(all_scans[:cfg["warmup"]]):
+        app.cloud_callback(scan, 0.1 * i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, scan in enumerate(all_scans[cfg["warmup"]:]):
+            app.cloud_callback(scan, 0.1 * (cfg["warmup"] + i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    app.terminate()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    out = dict(scans=scans, wall_ms=wall * 1e3, device_busy_ms=busy_us / 1e3,
+               device_busy_share=busy_us / 1e6 / wall,
+               top=[dict(name=k[:80], ms=t / 1e3, count=c)
+                    for k, t, c in rows[:12]])
+    log("[profile]", json.dumps(out))
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "app_trace.json"))
+    return out
+
+
+# -------------------------------------------------------------------- main
+def main() -> int:
+    faulthandler.enable()        # a crash in a kernel call prints its stack
+    if not (ROOT / "warpsense_tpu_torch" / "__init__.py").is_file():
+        print("chip_smoke: warpsense_tpu_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 3
+    device = torch.device("cuda", 0)
+    import warpsense_tpu_torch  # noqa: F401  (TF32 off)
+
+    card = record_card(torch)
+    build_kernels()
+    state, k1 = check_fusion(torch, FULL, device)
+    k2 = check_fields(torch, state, FULL["tau"])
+    times = time_kernels(torch, FULL, state)
+    del state
+    torch.cuda.empty_cache()
+    app = run_app(torch, APP, device)
+    profile_app(torch, APP, device)
+
+    kernels = [
+        {"name": "fusion_K1", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/fusion.cu",
+         "replaces": "warpsense_tpu/kernels/tsdf_pallas.py:133",
+         "also_replaces": "warpsense_tpu/kernels/tsdf_pallas.py:82",
+         "launches": app["launches"]["fusion"],
+         "max_abs_err": max(c["max_abs_err"] for c in k1),
+         "ms": times["fusion_level"]["ms"],
+         "plain_ms": times["fusion_level"]["plain_ms"],
+         "tilt_ms": times["fusion_tilt"]["ms"],
+         "tilt_plain_ms": times["fusion_tilt"]["plain_ms"]},
+        {"name": "fields_K2", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/fields.cu",
+         "replaces": "warpsense_tpu/kernels/fields_pallas.py:79",
+         "launches": app["launches"]["fields"],
+         "max_abs_err": k2["max_abs_err"],
+         "ms": times["fields_packed"]["ms"],
+         "plain_ms": times["fields_packed"]["plain_ms"],
+         "exact_ms": times["fields_exact"]["ms"],
+         "exact_plain_ms": times["fields_exact"]["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""SE(3) / fixed-point geometry on tensors.
+
+Counterpart of ``warpsense_tpu/core/geometry.py``.  Integer functions are
+bit-exact with the JAX package, int32 wraparound included: CUDA PyTorch has
+no int32 matmul, so ``transform_point_fixed`` is written as explicit int32
+multiply-adds (integer addition wraps modulo 2^32 in any order, so the
+result equals the JAX int32 dot).  Float functions run in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+from .consts import MATRIX_RESOLUTION
+
+
+def to_int_mat(pose: torch.Tensor) -> torch.Tensor:
+    """Scale a float 4x4 pose by MATRIX_RESOLUTION and truncate to int32."""
+    return (pose * MATRIX_RESOLUTION).to(torch.int32)
+
+
+def transform_point_fixed(points: torch.Tensor,
+                          int_mat: torch.Tensor) -> torch.Tensor:
+    """``(R*p + t) / MR`` for int32 mm points (..., 3) and a fixed-point 4x4
+    (int32, MATRIX_RESOLUTION-scaled), in wrapping int32 arithmetic.
+
+    Widening to int64 would change results: with MR = 2^15 and points of
+    +-20 m the sums approach 2^31 and the reference wraps."""
+    p = points.to(torch.int32)
+    m = int_mat.to(torch.int32)
+    cols = []
+    for j in range(3):
+        acc = p[..., 0] * m[j, 0] + p[..., 1] * m[j, 1] + p[..., 2] * m[j, 2]
+        cols.append(acc + m[j, 3])
+    out = torch.stack(cols, dim=-1)
+    return div_trunc(out, MATRIX_RESOLUTION)
+
+
+def div_trunc(a: torch.Tensor, b) -> torch.Tensor:
+    """C-style integer division (truncate toward zero).
+
+    Written as ``|a| // |b|`` with a sign fix, exactly like the JAX
+    function, so that INT_MIN (whose abs wraps) divides identically."""
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    q = torch.div(torch.abs(a), torch.abs(b), rounding_mode="floor")
+    return torch.where((a < 0) != (b < 0), -q, q)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """3x3 skew-symmetric matrix of a 3-vector."""
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    return torch.stack([
+        torch.stack([zero, -v[2], v[1]]),
+        torch.stack([v[2], zero, -v[0]]),
+        torch.stack([-v[1], v[0], zero]),
+    ])
+
+
+def rodrigues(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix from an axis-angle 3-vector, safe at theta -> 0."""
+    theta = torch.sqrt(torch.sum(axis_angle * axis_angle))
+    small = theta < 1e-12
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    L = skew(axis_angle / safe)
+    eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
+    R = eye + torch.sin(theta) * L + (1.0 - torch.cos(theta)) * (L @ L)
+    return torch.where(small, eye, R)
+
+
+def xi_to_transform(xi: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """Twist (rot[3], trans[3]) -> 4x4 SE3, rotating about ``center`` (mm)
+    rather than the origin (registration/util.h:5-39, "Formula 3.9")."""
+    rotation = rodrigues(xi[:3])
+    center_f = center.to(xi.dtype)
+    t = rotation @ (-center_f) + center_f + xi[3:6]
+    out = torch.zeros((4, 4), dtype=xi.dtype, device=xi.device)
+    out[:3, :3] = rotation
+    out[:3, 3] = t
+    out[3, 3] = 1.0
+    return out
+
+
+def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix -> unit quaternion (x, y, z, w); picks the best
+    conditioned of the four constructions like the JAX function."""
+    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
+    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
+    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1 + tr, 1 + m00 - m11 - m22, 1 - m00 + m11 - m22,
+                      1 - m00 - m11 + m22])
+    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) / 2.0
+    idx = int(torch.argmax(torch.stack([tr, m00, m11, m22])))
+    s = 4 * qw[idx]
+    if idx == 0:
+        q = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s,
+                         qw[0]])
+    elif idx == 1:
+        q = torch.stack([qw[1], (m01 + m10) / s, (m02 + m20) / s,
+                         (m21 - m12) / s])
+    elif idx == 2:
+        q = torch.stack([(m01 + m10) / s, qw[2], (m12 + m21) / s,
+                         (m02 - m20) / s])
+    else:
+        q = torch.stack([(m02 + m20) / s, (m12 + m21) / s, qw[3],
+                         (m10 - m01) / s])
+    return q / torch.sqrt(torch.sum(q * q))

@@ -1,0 +1,94 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
+into ``warpsense_tpu_torch/_build/lib<name>_<hash>.so`` (the hash covers the
+source and the flags, so an edited source rebuilds).  Only the sources in
+the package are used: a fresh checkout builds everything it runs.
+
+Flags: ``sm_90a`` (Hopper), ``-fmad=false`` (no multiply-add contraction,
+which would change float32 rounding against the reference), no fast math.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
+
+# both kernels index voxels with 32-bit unsigned arithmetic
+MAX_VOXELS = 2 ** 31 - 1
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}     # name -> nvcc wall time (0: cached)
+build_log: dict[str, str] = {}           # name -> nvcc/ptxas report
+
+
+def find_nvcc() -> str:
+    """nvcc from ``$CUDA_HOME/bin``, else ``PATH``, else the toolkit's
+    standard prefix; raises when there is none."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    which = shutil.which("nvcc")
+    if which:
+        candidates.append(Path(which))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin/nvcc, PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels of warpsense_tpu_torch/csrc need the CUDA toolkit")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu`` (built if needed)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_build(name)))
+            _libs[name] = lib
+        return lib
+
+
+def _build(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if out.exists():
+        build_seconds.setdefault(name, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                          capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {src.name} "
+                           f"(rc {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)          # atomic: concurrent builders never clash
+    return out
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")

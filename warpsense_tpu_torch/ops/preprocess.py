@@ -1,0 +1,63 @@
+"""Scan preprocessing: voxel snap + dedup + fixed-point pose transform.
+
+Counterpart of ``warpsense_tpu/ops/preprocess.py`` (``App::preprocess``,
+src/warpsense/app.cpp:120-148), bit-exact with it.  The cloud keeps a static
+shape: voxel keys are sorted, duplicates masked, and valid points compacted
+to the front.  ``jnp.lexsort((cz, cy, cx))`` becomes three stable sorts
+(least significant key first), and the compaction stays a stable argsort.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.geometry import to_int_mat, transform_point_fixed
+
+
+def _lexsort3(cx: torch.Tensor, cy: torch.Tensor,
+              cz: torch.Tensor) -> torch.Tensor:
+    """Indices sorting by (cx, cy, cz), ties kept in input order."""
+    order = torch.argsort(cz, stable=True)
+    order = order[torch.argsort(cy[order], stable=True)]
+    return order[torch.argsort(cx[order], stable=True)]
+
+
+def preprocess(points_m: torch.Tensor, valid: torch.Tensor,
+               pose: torch.Tensor, *, resolution: int, capacity: int,
+               snap: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """points_m: (N, 3) float32 meters (padded rows arbitrary); valid: (N,)
+    bool; pose: 4x4 float32 (mm translation), all on one device.
+
+    Returns (points (capacity, 3) int32 mm, mask (capacity,) bool):
+    deduplicated voxel representatives in the map frame, valid first.
+    ``snap=True`` returns voxel centers (reference parity); ``snap=False``
+    keeps the first point's true mm coordinates per voxel (fast mode)."""
+    x, y, z = points_m[:, 0], points_m[:, 1], points_m[:, 2]
+    near = (x < 0.3) & (y < 0.3) & (z < 0.3)   # reference quirk: AND, not norm
+    keep = valid & ~near & torch.all(torch.isfinite(points_m), dim=-1)
+
+    mm = points_m * 1000.0
+    center = (torch.floor(mm / resolution) * resolution
+              + resolution // 2).to(torch.int32)
+
+    big = torch.tensor(2 ** 30, dtype=torch.int32, device=points_m.device)
+    cx = torch.where(keep, center[:, 0], big)
+    cy = torch.where(keep, center[:, 1], big)
+    cz = torch.where(keep, center[:, 2], big)
+    order = _lexsort3(cx, cy, cz)
+    sc = center[order]
+    skeep = keep[order]
+
+    first = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                  device=points_m.device),
+                       torch.any(sc[1:] != sc[:-1], dim=-1)])
+    uniq = skeep & first
+    if not snap:
+        sc = torch.round(mm).to(torch.int32)[order]
+
+    comp = torch.argsort((~uniq).to(torch.uint8), stable=True)[:capacity]
+    out_pts = sc[comp]
+    out_mask = uniq[comp]
+
+    transformed = transform_point_fixed(out_pts, to_int_mat(pose))
+    return torch.where(out_mask[:, None], transformed,
+                       torch.zeros_like(transformed)), out_mask

@@ -1,0 +1,352 @@
+"""Fast-mode point-to-TSDF registration on tensors (packed fields + LM).
+
+Counterpart of the packed fast path of ``warpsense_tpu/ops/registration.py``
+(re-design of registration.cu:14-257 and tsdf_registration.cpp:28-105):
+
+* the map's value and per-axis gradient are precomputed once per map change
+  into one int32 plane (byte layout v:8|gx:8|gy:8|gz:8, ``PackedFields``)
+  or two exact planes (``PackedFields2``); CUDA kernel K2
+  (``kernels/fields.py``) computes them on the card, the roll formulation
+  here is its plain version;
+* each LM iteration is one gather from that plane plus J^T J, J^T r on the
+  device;
+* the JAX ``lax.while_loop`` becomes a host loop: each iteration brings H,
+  g, e and c to the host once (one sync, at most ``max_iterations``),
+  where the 6x6 solve and the accept/reject logic run in float32 on the
+  CPU with the same control flow, coarse phase and gather freeze included.
+
+Numerics: the statistics are float32 sums whose order differs from XLA's,
+and the 6x6 solve is LAPACK's rather than XLA's, so poses agree with the JAX
+package within a tolerance (tests state it), not bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.consts import MATRIX_RESOLUTION
+from ..core.geometry import div_trunc, transform_point_fixed, xi_to_transform
+from ..map.local_map import LocalMapState, in_bounds, ring_coords
+
+
+class PackedFields(NamedTuple):
+    """Single-plane packed fields (int32 (X, Y, Z)), byte layout (MSB..LSB)
+    v:8 | gx:8 | gy:8 | gz:8; v byte 0 = invalid (weight 0)."""
+    plane: torch.Tensor
+
+
+class PackedFields2(NamedTuple):
+    """Two-plane exact fields: a = v:16|gx:16, b = gy:16|gz:16; invalid
+    (weight 0) is the sentinel v = -32768."""
+    plane_a: torch.Tensor
+    plane_b: torch.Tensor
+
+
+def _pack16(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    return ((hi.to(torch.int32) & 0xFFFF) << 16) | (lo.to(torch.int32)
+                                                    & 0xFFFF)
+
+
+def _unpack_lo(x: torch.Tensor) -> torch.Tensor:
+    """Sign-extended low half (the JAX ``(x << 16) >> 16``)."""
+    return ((x & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def _unpack_hi(x: torch.Tensor) -> torch.Tensor:
+    return x >> 16
+
+
+def _pack_shift(tau: int, limit: int) -> int:
+    s = 0
+    while (tau >> s) > limit:
+        s += 1
+    return s
+
+
+def packed_shifts(tau: int) -> tuple[int, int]:
+    """(vshift, gshift): minimal power-of-two quantization for tau."""
+    return _pack_shift(tau, 126), _pack_shift(tau, 126)
+
+
+def _rshift_round(x, s):
+    # round-to-nearest quantization (plain >> floors: a -2^(s-1) bias)
+    return (x + (1 << s >> 1)) >> s if s else x
+
+
+def packed_plane_from_neighbors(v, w, neighbors, *, tau: int) -> torch.Tensor:
+    """Pack (value, per-axis central-difference gradient) into the one-plane
+    byte layout from int32 ``v``/``w`` and per-axis neighbour tuples
+    ``[(nv, pv, nw, pw)] * 3``.  Weight-validity masking only, no
+    sign-change rejection (the crossing cells carry the most informative
+    gradient)."""
+    vs, gs = packed_shifts(tau)
+    codes = []
+    for nv, pv, nw, pw in neighbors:
+        ok = (nw != 0) & (pw != 0)
+        g = torch.where(ok, div_trunc(nv - pv, 2), torch.zeros_like(nv))
+        codes.append(torch.clamp(_rshift_round(g, gs) + 128, 1, 255))
+    vcode = torch.where(w != 0, torch.clamp(_rshift_round(v, vs) + 128, 1, 255),
+                        torch.zeros_like(v))
+    return (vcode << 24) | (codes[0] << 16) | (codes[1] << 8) | codes[2]
+
+
+def _roll_neighbors(v, w):
+    return [(torch.roll(v, -1, ax), torch.roll(v, 1, ax),
+             torch.roll(w, -1, ax), torch.roll(w, 1, ax)) for ax in range(3)]
+
+
+def precompute_fields_packed(state: LocalMapState, *,
+                             tau: int) -> PackedFields:
+    """One-plane packed fields, roll formulation (plain version of K2)."""
+    v = state.value.to(torch.int32)
+    w = state.weight.to(torch.int32)
+    return PackedFields(plane=packed_plane_from_neighbors(
+        v, w, _roll_neighbors(v, w), tau=tau))
+
+
+def precompute_fields_packed2(state: LocalMapState) -> PackedFields2:
+    """Exact two-plane packing, roll formulation (plain version of K2)."""
+    v = state.value.to(torch.int32)
+    w = state.weight.to(torch.int32)
+    grads = [torch.where((nw != 0) & (pw != 0), div_trunc(nv - pv, 2),
+                         torch.zeros_like(nv))
+             for nv, pv, nw, pw in _roll_neighbors(v, w)]
+    vsent = torch.where(w != 0, v, torch.full_like(v, -32768))
+    return PackedFields2(plane_a=_pack16(vsent, grads[0]),
+                         plane_b=_pack16(grads[1], grads[2]))
+
+
+def precompute_fields_packed_auto(state: LocalMapState, *, tau: int,
+                                  exact: bool = False):
+    """Kernel K2 for a CUDA state, its plain version for a CPU state."""
+    from ..kernels.fields import fields_packed
+    return fields_packed(state, tau=tau, exact=exact)
+
+
+def _decode_packed(code: torch.Tensor, vs: int, gs: int):
+    vcode = (code >> 24) & 0xFF
+    valid = vcode != 0
+    v = (vcode - 128) << vs
+    gx = (((code >> 16) & 0xFF) - 128) << gs
+    gy = (((code >> 8) & 0xFF) - 128) << gs
+    gz = ((code & 0xFF) - 128) << gs
+    return valid, v, torch.stack([gx, gy, gz], dim=-1)
+
+
+_SCP = 1.0 / (1 << 15)   # cross columns ~ p[mm] * unit-grad
+
+
+def register_cloud_packed(fields, pos, offset, points, mask, pretransform, *,
+                          size: tuple[int, int, int], resolution: int,
+                          tau: int, max_iterations: int,
+                          it_weight_gradient: float, epsilon: float,
+                          interp: bool = True, coarse_iterations: int = 0,
+                          gather_freeze: bool = False):
+    """Fast-mode LM registration against packed fields.
+
+    Returns ``(pose 4x4 float32 on pretransform's device, iterations int,
+    final_err float)``.
+    Solver, convergence and ``gather_freeze`` are those of the JAX function
+    (adaptive Levenberg-Marquardt with Marquardt scaling; stop on a step
+    below the residual noise floor or on the 4-round error window)."""
+    kw = dict(size=size, resolution=resolution, tau=tau, interp=interp)
+    stats = make_packed_stats(fields, pos, offset, points, mask, **kw)
+    stats_coarse = None
+    if coarse_iterations > 0:
+        # 1-in-4 deterministic subsample for the early iterations
+        stats_coarse = make_packed_stats(fields, pos, offset, points[::4],
+                                         mask[::4], **kw)
+    split = (make_packed_stats_split(fields, pos, offset, points, mask, **kw)
+             if gather_freeze else None)
+    del it_weight_gradient   # parity-mode ramp; LM adapts alpha itself
+    return _lm_loop(stats, pretransform, max_iterations=max_iterations,
+                    epsilon=epsilon, stats_coarse=stats_coarse,
+                    coarse_iterations=coarse_iterations, split=split,
+                    freeze_step_mm=float(resolution))
+
+
+def _gather_decode(fields, vs, gs, a):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    if isinstance(fields, PackedFields2):
+        pa = fields.plane_a[a0, a1, a2]
+        pb = fields.plane_b[a0, a1, a2]
+        v = _unpack_lo(pa)
+        grad = torch.stack([_unpack_hi(pa), _unpack_lo(pb), _unpack_hi(pb)],
+                           dim=-1)
+        return v != -32768, v, grad
+    return _decode_packed(fields.plane[a0, a1, a2], vs, gs)
+
+
+def _cells(points, mask, pos, offset, total, size, resolution):
+    """(pts, buf, valid, array coords) of the cloud under ``total``."""
+    int_mat = torch.trunc(total * MATRIX_RESOLUTION).to(torch.int32)
+    pts = transform_point_fixed(points, int_mat)
+    buf = torch.div(pts, resolution, rounding_mode="floor")
+    valid = mask & in_bounds(buf, pos, size, 1)
+    a = ring_coords(buf, pos, offset, size)
+    a = torch.where(valid[:, None], a, torch.zeros_like(a))
+    return pts, buf, valid, a
+
+
+def _normal_equations(pts, total, gradf, vf32, valid):
+    ctr = total[:3, 3]
+    p = pts.to(torch.float32) - ctr
+    cross = torch.linalg.cross(p, gradf, dim=-1)
+    vfm = valid.to(torch.float32)
+    Js = torch.cat([cross * _SCP, gradf], dim=-1) * vfm[:, None]
+    r = vf32 * vfm
+    return Js.T @ Js, Js.T @ r, torch.sum(torch.abs(r)), torch.sum(vfm)
+
+
+def make_packed_stats(fields, pos, offset, points, mask, *, size, resolution,
+                      tau, interp):
+    """``stats(total) -> (H, g, e, c)`` over packed fields; ``total`` is a
+    4x4 float32 tensor on the device of ``points``."""
+    vs, gs = packed_shifts(tau)
+
+    def stats(total):
+        pts, buf, valid, a = _cells(points, mask, pos, offset, total, size,
+                                    resolution)
+        ok, v, grad = _gather_decode(fields, vs, gs, a)
+        valid = valid & ok
+        gradf = grad.to(torch.float32) / float(resolution)   # mm per mm
+        vf32 = v.to(torch.float32)
+        if interp:
+            # continuous residual: value + gradient x within-cell offset
+            cc = buf * resolution + resolution // 2
+            dpos = (pts - cc).to(torch.float32)
+            vf32 = vf32 + torch.sum(gradf * dpos, dim=-1)
+        return _normal_equations(pts, total, gradf, vf32, valid)
+
+    return stats
+
+
+def make_packed_stats_split(fields, pos, offset, points, mask, *, size,
+                            resolution, tau, interp):
+    """(gather_fn, eval_fn) split of ``make_packed_stats``:
+    ``eval_fn(gather_fn(T), T)`` equals ``make_packed_stats(...)(T)``; the
+    cache lets the LM tail iterate without re-gathering."""
+    vs, gs = packed_shifts(tau)
+
+    def gather_fn(total):
+        pts, buf, valid, a = _cells(points, mask, pos, offset, total, size,
+                                    resolution)
+        ok, v, grad = _gather_decode(fields, vs, gs, a)
+        return dict(valid=valid & ok, v=v.to(torch.float32),
+                    gradf=grad.to(torch.float32) / float(resolution),
+                    cc=buf * resolution + resolution // 2)
+
+    def eval_fn(cache, total):
+        int_mat = torch.trunc(total * MATRIX_RESOLUTION).to(torch.int32)
+        pts = transform_point_fixed(points, int_mat)
+        vf32 = cache["v"]
+        gradf = cache["gradf"]
+        if interp:
+            dpos = (pts - cache["cc"]).to(torch.float32)
+            vf32 = vf32 + torch.sum(gradf * dpos, dim=-1)
+        return _normal_equations(pts, total, gradf, vf32, cache["valid"])
+
+    return gather_fn, eval_fn
+
+
+def _host_stats(H, g, e, c):
+    """One device->host copy of the 44 statistics (the loop's one sync)."""
+    flat = torch.cat([H.reshape(-1), g.reshape(-1), e.reshape(1),
+                      c.reshape(1)]).to(device="cpu", dtype=torch.float32)
+    return flat[:36].reshape(6, 6), flat[36:42], flat[42], flat[43]
+
+
+def _solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """6x6 float32 solve; a singular system yields NaN (like an LU that
+    divides by a zero pivot) instead of raising."""
+    y, info = torch.linalg.solve_ex(A, b)
+    if int(info) != 0:
+        return torch.full_like(b, float("nan"))
+    return y
+
+
+def _lm_loop(stats, pretransform, *, max_iterations, epsilon,
+             stats_coarse=None, coarse_iterations: int = 0, split=None,
+             freeze_step_mm: float = 0.0):
+    """Adaptive-LM driver over a ``stats(total)`` closure: the JAX
+    ``lax.while_loop`` as a host loop with exactly its control flow.
+
+    ``stats_coarse``: cheaper closure for the first ``coarse_iterations``;
+    ``split``: ``(gather_fn, eval_fn)`` enabling the gather freeze once an
+    accepted step is below ``freeze_step_mm``."""
+    device = pretransform.device
+    f32 = torch.float32
+    D = torch.tensor([_SCP] * 3 + [1.0] * 3, dtype=f32)
+    eye6 = torch.eye(6, dtype=f32)
+
+    def c32(x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=f32)
+
+    p0 = pretransform.detach().to(device="cpu", dtype=f32)
+    acc, accH, accg = p0, eye6, torch.zeros(6, dtype=f32)
+    acc_err = torch.tensor(float("inf"), dtype=f32)
+    alpha = torch.tensor(1e-3, dtype=f32)
+    trial = p0
+    prev = torch.full((4,), float("inf"), dtype=f32)
+    if split is not None:
+        gather_fn, eval_fn = split
+        cache = gather_fn(p0.to(device))
+        frozen = False
+
+    i = 0
+    while i < max_iterations:
+        trial_dev = trial.to(device)
+        coarse_now = stats_coarse is not None and i < coarse_iterations
+        if split is None:
+            dev_stats = (stats_coarse if coarse_now else stats)(trial_dev)
+        else:
+            # the initial cache was built at p0; with a coarse phase it is
+            # stale by hand-off, so the first fine iteration re-gathers
+            reuse = frozen or (i == 0 and coarse_iterations == 0)
+            if not (reuse or coarse_now):
+                cache = gather_fn(trial_dev)
+            dev_stats = (stats_coarse(trial_dev) if coarse_now
+                         else eval_fn(cache, trial_dev))
+        H, g, e, c = _host_stats(*dev_stats)
+        err = (e / torch.clamp(c, min=1.0) if c > 0.0
+               else torch.tensor(float("inf"), dtype=f32))
+
+        # the coarse->fine hand-off re-baselines the accepted state
+        improved = bool(err <= acc_err)
+        if stats_coarse is not None and i == coarse_iterations:
+            improved = True
+            err2 = err
+        else:
+            err2 = torch.minimum(err, acc_err)
+        if improved:
+            acc, accH, accg = trial, H, g
+        alpha = torch.clamp(alpha / 3.0 if improved else alpha * 4.0,
+                            1e-5, 1e5)
+
+        dH = torch.diag(torch.diag(accH)) + 1e-12 * eye6
+        y = _solve6(accH + alpha * dH, -accg)
+        ok = bool(torch.isfinite(err2)) and bool(torch.all(torch.isfinite(y)))
+        xi = D * y if ok else torch.zeros(6, dtype=f32)
+        trial = xi_to_transform(xi, acc[:3, 3].to(torch.int32)) @ acc
+
+        # thresholds compare in float32, as JAX compares a weak Python
+        # float against a float32 value
+        rot2 = torch.sum(xi[:3] * xi[:3])
+        tr2 = torch.sum(xi[3:] * xi[3:])
+        tiny = improved and bool(rot2 < c32(1e-7)) and bool(tr2 < c32(0.25))
+        eps = c32(epsilon)
+        window = bool((torch.abs(err2 - prev[2]) < eps)
+                      & (torch.abs(err2 - prev[0]) < eps))
+        finished = tiny or window or not ok
+        prev = torch.cat([prev[1:], err2.reshape(1)])
+        acc_err = err2
+        if split is not None:
+            frozen = frozen or (
+                improved and i >= coarse_iterations
+                and bool(tr2 < c32(freeze_step_mm * freeze_step_mm))
+                and bool(rot2 < c32(1e-6)))
+        i += 1
+        if finished:
+            break
+    return acc.to(device), i, float(acc_err)
