@@ -10,7 +10,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
 2. build the CUDA kernels from warpsense_tpu_torch/csrc with nvcc;
 3. fusion kernel K1 against its plain PyTorch version at the full
    625 x 625 x 235 window with a 128 x 1024 scanner: two level fusions and
-   one at a 4 degree tilt, 0 value/weight mismatches required;
+   one at a 4 degree tilt, 0 value/weight mismatches required; then the
+   same three cases at configs/default.yaml's shapes (625 x 625 x 391,
+   tau 1000 mm, its max_weight), which the parity and featsense apps run;
 4. fields kernel K2 (packed and exact) against its plain version on the
    fused map, 0 mismatches required;
 5. kernel and plain times (CUDA events, median of 7) with achieved GB/s;
@@ -18,7 +20,21 @@ Phases (each raises on failure; nothing falls back to the CPU):
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
 7. torch.profiler over 4 more app scans: device busy share and top
-   kernels (trace in chiprun_out/app_trace.json).
+   kernels (trace in chiprun_out/app_trace.json);
+8. WarpsenseApp(device="cuda") in parity mode at configs/default.yaml
+   (625 x 625 x 391): the same 10 scans, update_distance 0, a shift check
+   every scan; each scan's position within PARITY_POSE_BOUND_MM of the
+   JAX app's on the CPU and its window where JAX's was (the window moves
+   six times), ATE below PARITY_ATE_BOUND_M, K1 launched;
+9. ray-march fusion: one fuse_cloud(fusion="raymarch") on CUDA and on CPU
+   tensors at a 161 x 161 x 61 window (0 value/weight mismatches), then
+   its time at the default window;
+10. FeatsenseApp(device="cuda", fusion="auto") at configs/default.yaml on
+   10 scans with translation and yaw: finite poses, final-pose error below
+   FEATSENSE_BOUND_M, K1 launched; then 3 scans with fusion="raymarch".
+
+Every phase prints its seconds.  Each path's kernel launches are counted
+from 0 just before it runs.
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -39,7 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 FULL = dict(size=(625, 625, 235), tau=600, res=64, n=32766,
-            channels=128, columns=1024, vfov_deg=45.0)
+            channels=128, columns=1024, vfov_deg=45.0, max_weight=32 * 64)
 APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
            channels=128, columns=1024, capacity=32766, step_m=0.1,
            shift_m=0.35, noise=0.002)
@@ -49,6 +65,38 @@ APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
 ATE_BOUND_M = 0.02
 TILT_DEG = 4.0
 REPS = 7
+# parity mode at the shipped default config, on APP's scans.  Cut: 10
+# scans, update_distance 0 (fuse every scan), shift 0 (the window-shift
+# check runs every scan: the reference's GN creeps ~1.5 mm a scan here, so
+# a 0.35 m gate would never fire; at 0 the window follows the pose across
+# voxel edges).  The JAX parity app on the CPU, at a 361 x 261 x 131
+# window that holds the room, reaches these positions (mm) and windows;
+# the port on the CPU is within 2e-6 mm of them.  The pose bound is the
+# repo's registration tolerance, far below the 14.3 mm the reference
+# moves by the last scan; the ATE bound is twice JAX's ATE.
+PARITY = dict(APP, capacity=32768, shift_m=0.0)
+PARITY_JAX_MM = [
+    [-0.3352, -0.0035, 0.0472], [0.6422, -0.0255, 0.2934],
+    [1.6379, -0.2885, 0.0572], [3.0878, -0.2296, -0.0691],
+    [4.4202, -0.1418, 0.0201], [6.0252, 0.0099, 0.0484],
+    [7.6392, 0.5802, 0.1938], [9.511, 1.1782, 0.1936],
+    [11.5487, 1.9807, 0.3165], [14.3411, 3.0451, 0.2407]]
+PARITY_JAX_WINDOW = [[-1, -1, 0], [0, -1, 0], [0, -1, 0], [0, -1, -1],
+                     [0, -1, 0], [0, 0, 0], [0, 0, 0], [0, 0, 0],
+                     [0, 0, 0], [0, 0, 0]]
+PARITY_POSE_BOUND_MM = 0.5
+PARITY_ATE_BOUND_M = 2 * 0.5253290603
+# ray march: CUDA vs CPU at a window the CPU sweeps in seconds, then the
+# time at the default window; 32,766 points on the walls of a room inside
+# each window
+RAYMARCH = dict(small=(161, 161, 61), n=32766)
+# featsense at the default config: 10 scans of 128 x 1024 along 0.12 m
+# steps with 0.02 rad of yaw a scan.  The JAX app on the CPU ends 0.10133 m
+# from the truth on these scans (CHANGES.md); the bound is twice that.
+FEATSENSE = dict(scans=10, warmup=2, raymarch_scans=3, step_m=0.12,
+                 noise=0.003, channels=128, columns=1024)
+FEATSENSE_BOUND_M = 2 * 0.10133
+DEFAULT_YAML = ROOT / "warpsense_tpu_torch" / "configs" / "default.yaml"
 
 
 def log(*a) -> None:
@@ -139,7 +187,7 @@ def check_fusion(torch, cfg, device):
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
               channels=cfg["channels"], columns=cfg["columns"],
               vfov_deg=cfg["vfov_deg"])
-    mw = 32 * 64
+    mw = cfg["max_weight"]
     pts, mask = room_points(torch, cfg, device)
     st_k = create_state(cfg["size"], cfg["tau"], 0, device=device,
                         force_odd=False)
@@ -159,7 +207,8 @@ def check_fusion(torch, cfg, device):
         err = int((st_k.value.int() - st_p.value.int()).abs().max()) + int(
             (st_k.weight.int() - st_p.weight.int()).abs().max())
         fused = int((st_k.weight != 0).sum())
-        case = dict(scanner=list(spos), level=level, value_mismatch=dv,
+        case = dict(size=list(cfg["size"]), tau=cfg["tau"],
+                    scanner=list(spos), level=level, value_mismatch=dv,
                     weight_mismatch=dw, max_abs_err=err, fused_voxels=fused)
         log("[K1]", json.dumps(case))
         report.append(case)
@@ -168,6 +217,18 @@ def check_fusion(torch, cfg, device):
     if report[-1]["fused_voxels"] == 0:
         raise AssertionError("K1 fused nothing")
     return st_k, report
+
+
+def default_fusion_cfg() -> dict:
+    """check_fusion's inputs at configs/default.yaml: the window the
+    parity and featsense apps allocate (extents forced odd), its tau and
+    max_weight, and its scanner."""
+    params = default_params()
+    m, lidar = params.map, params.lidar
+    return dict(size=tuple(s | 1 for s in m.size_voxels), tau=m.tau,
+                res=m.resolution, n=FULL["n"], channels=lidar.channels,
+                columns=lidar.hresolution, vfov_deg=lidar.vfov,
+                max_weight=m.max_weight_scaled)
 
 
 # ----------------------------------------------------------------- phase 4
@@ -231,7 +292,7 @@ def time_kernels(torch, cfg, state):
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
               channels=cfg["channels"], columns=cfg["columns"],
               vfov_deg=cfg["vfov_deg"])
-    mw = 32 * 64
+    mw = cfg["max_weight"]
     pts, mask = room_points(torch, cfg, device)
     work = [state.value.clone(), state.weight.clone()]
 
@@ -318,8 +379,6 @@ def run_app(torch, cfg, device):
     returns the report."""
     import numpy as np
 
-    from warpsense_tpu_torch.kernels.fields import fields_packed
-    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
     from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
 
@@ -332,8 +391,7 @@ def run_app(torch, cfg, device):
     ev.clear()
     pos0 = app.state.pos.cpu().numpy().copy()
     poses, iters = [], []
-    fusion_sweep_merge.launches = 0
-    fields_packed.launches = 0
+    reset_launches()
     t_start = None
     for i, scan in enumerate(scans):
         if i == cfg["warmup"]:
@@ -349,8 +407,7 @@ def run_app(torch, cfg, device):
     t0 = time.perf_counter()
     app.terminate()
     term_s = time.perf_counter() - t0
-    launches = {"fusion": fusion_sweep_merge.launches,
-                "fields": fields_packed.launches}
+    launches = read_launches()
     stages = {r["task"]: r["avg"] / 1000.0 for r in ev.to_rows()}
     rep = dict(scans=len(scans), timed_scans=len(scans) - cfg["warmup"],
                scans_per_s=(len(scans) - cfg["warmup"]) / wall,
@@ -410,6 +467,243 @@ def profile_app(torch, cfg, device, scans=4):
     return out
 
 
+# ----------------------------------------------------------------- phase 8
+def default_params(**map_overrides):
+    from warpsense_tpu_torch.core.config import Params
+    params = Params.from_yaml(DEFAULT_YAML)
+    for k, v in map_overrides.items():
+        setattr(params.map, k, v)
+    return params
+
+
+def reset_launches() -> None:
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    fusion_sweep_merge.launches = 0
+    fields_packed.launches = 0
+
+
+def read_launches() -> dict:
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    return {"fusion": fusion_sweep_merge.launches,
+            "fields": fields_packed.launches}
+
+
+def run_parity_app(torch, cfg, device):
+    """WarpsenseApp in parity mode (the default config) through its
+    callbacks; returns the report."""
+    import numpy as np
+
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
+    params = default_params(update_distance=0.0, shift=cfg["shift_m"])
+    if params.registration.mode != "parity":
+        raise AssertionError("configs/default.yaml is not in parity mode")
+    gt, scans = app_scans(cfg)
+    app = WarpsenseApp(params, in_memory_map=True, capacity=cfg["capacity"],
+                       fusion="auto", device=device, profile=True)
+    ev = RuntimeEvaluator.get_instance()
+    ev.clear()
+    poses, windows = [], []
+    reset_launches()
+    for i, scan in enumerate(scans):
+        if i == cfg["warmup"]:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        poses.append(app.cloud_callback(scan, 0.1 * i))
+        windows.append(app.state.pos.cpu().tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    pose_err = [float(np.abs(p[:3, 3] - np.asarray(j)).max())
+                for p, j in zip(poses, PARITY_JAX_MM)]
+    rep = dict(window=list(app.local_map.size), scans=len(scans),
+               scans_per_s=(len(scans) - cfg["warmup"]) / wall,
+               stage_avg_ms={r["task"]: r["avg"] / 1000.0
+                             for r in ev.to_rows()},
+               stage_count={r["task"]: r["count"] for r in ev.to_rows()},
+               window_pos=windows, pose_err_vs_jax_mm=pose_err,
+               ate_m=ate_m(poses, gt), launches=launches,
+               finite=bool(np.all(np.isfinite(np.stack(poses)))))
+    app.terminate()
+    log("[parity_app]", json.dumps(rep))
+    if not rep["finite"]:
+        raise AssertionError("non-finite parity pose")
+    if not max(pose_err) < PARITY_POSE_BOUND_MM:
+        raise AssertionError(f"parity poses {max(pose_err):.4f} mm from "
+                             f"JAX's >= {PARITY_POSE_BOUND_MM} mm")
+    if windows != PARITY_JAX_WINDOW:
+        raise AssertionError(f"parity windows {windows} != JAX's "
+                             f"{PARITY_JAX_WINDOW}")
+    if not rep["ate_m"] < PARITY_ATE_BOUND_M:
+        raise AssertionError(f"parity ATE {rep['ate_m']:.4f} m >= "
+                             f"{PARITY_ATE_BOUND_M} m")
+    if launches["fusion"] == 0:
+        raise AssertionError(f"K1 was not launched: {launches}")
+    return rep
+
+
+# ----------------------------------------------------------------- phase 9
+def raymarch_inputs(torch, params, size, n, device):
+    import math
+
+    import numpy as np
+
+    from warpsense_tpu_torch.map.local_map import create_state
+    from warpsense_tpu_torch.ops.tsdf import plan_raymarch
+    m = params.map
+    pts, mask = room_points(torch, dict(size=size, res=m.resolution, n=n),
+                            device)
+    a = math.radians(3.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                    [-math.sin(a), 0, math.cos(a)]]
+    pose[:3, 3] = [70.0, -40.0, 30.0]
+    state = create_state(size, m.tau, 0, device=device, force_odd=False)
+    steps = plan_raymarch(m.tau, m.resolution, 50000, params.lidar.channels,
+                          params.lidar.vfov)
+    return state, pts, mask, pose, steps
+
+
+def check_raymarch(torch, device, card_name):
+    """Ray march on CUDA tensors against the same call on CPU tensors (the
+    same plain PyTorch code), then its time at the default window on the
+    card ``card_name`` (nvidia-smi's name and power limit)."""
+    from warpsense_tpu_torch.map.local_map import clone_state
+    from warpsense_tpu_torch.pipeline.fusion_backend import fuse_cloud
+    params = default_params()
+    out = {}
+    size = RAYMARCH["small"]
+    st, pts, mask, pose, steps = raymarch_inputs(torch, params, size,
+                                                 RAYMARCH["n"], device)
+    kw = dict(params=params, size=size, fusion="raymarch",
+              max_steps=steps[0], max_isteps=steps[1])
+    st_cpu = clone_state(st)
+    st_cpu = type(st)(*(t.cpu() for t in st_cpu))
+    t0 = time.perf_counter()
+    fuse_cloud(st, pts, mask, pose, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fuse_cloud(st_cpu, pts.cpu(), mask.cpu(), pose, **kw)
+    t2 = time.perf_counter()
+    dv = int((st.value.cpu() != st_cpu.value).sum())
+    dw = int((st.weight.cpu() != st_cpu.weight).sum())
+    out["small"] = dict(size=list(size), points=int(pts.shape[0]),
+                        value_mismatch=dv, weight_mismatch=dw,
+                        fused_voxels=int((st_cpu.weight != 0).sum()),
+                        cuda_s=t1 - t0, cpu_s=t2 - t1)
+    log("[raymarch]", json.dumps(out["small"]))
+    if dv or dw:
+        raise AssertionError(f"ray march CUDA != CPU: {out['small']}")
+    if out["small"]["fused_voxels"] == 0:
+        raise AssertionError("the ray march fused nothing")
+    del st, st_cpu
+
+    size = tuple(s | 1 for s in params.map.size_voxels)  # forced odd
+    st, pts, mask, pose, steps = raymarch_inputs(torch, params, size,
+                                                 RAYMARCH["n"], device)
+    base = clone_state(st)
+    kw.update(size=size, max_steps=steps[0], max_isteps=steps[1])
+
+    def reset():
+        st.value.copy_(base.value)
+        st.weight.copy_(base.weight)
+    ms = time_ms(torch, lambda: fuse_cloud(st, pts, mask, pose, **kw),
+                 setup=reset, reps=5)
+    out["default"] = dict(size=list(size), points=int(pts.shape[0]),
+                          max_steps=steps[0], max_isteps=steps[1], ms=ms,
+                          fused_voxels=int((st.weight != 0).sum()),
+                          card=card_name)
+    log("[raymarch]", json.dumps(out["default"]))
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+def featsense_scans(cfg):
+    import numpy as np
+
+    from warpsense_tpu_torch.io.synthetic import BoxWorld, render_scan
+    truth = np.zeros((cfg["scans"], 4, 4))
+    for i in range(cfg["scans"]):
+        c, s = np.cos(0.02 * i), np.sin(0.02 * i)
+        truth[i] = np.eye(4)
+        truth[i][:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        truth[i][:3, 3] = [cfg["step_m"] * i, 0.04 * i, 0.0]
+    rng = np.random.default_rng(5)
+    scans = [render_scan(BoxWorld.default(), p, channels=cfg["channels"],
+                         columns=cfg["columns"], noise_std=cfg["noise"],
+                         rng=rng) for p in truth]
+    return truth, scans
+
+
+def run_featsense_app(torch, cfg, device):
+    """FeatsenseApp at the default config with fusion="auto" (K1), then a
+    few scans with the default fusion="raymarch"."""
+    import numpy as np
+
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
+    truth, scans = featsense_scans(cfg)
+    params = default_params()
+    app = FeatsenseApp(params, fusion="auto", device=device,
+                       in_memory_map=True, profile=True)
+    ev = RuntimeEvaluator.get_instance()
+    ev.clear()
+    poses = []
+    reset_launches()
+    for i, scan in enumerate(scans):
+        if i == cfg["warmup"]:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        poses.append(app.process_scan(scan, 0.1 * i))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    rows = ev.to_rows()
+    rep = dict(window=list(app.mapping.local_map.size), scans=len(scans),
+               scans_per_s=(len(scans) - cfg["warmup"]) / wall,
+               stage_avg_ms={r["task"]: r["avg"] / 1000.0 for r in rows},
+               final_error_m=float(np.linalg.norm(poses[-1][:3, 3]
+                                                  - truth[-1][:3, 3])),
+               refined_poses=len(app.mapping.gicp_path),
+               launches=launches,
+               finite=bool(np.all(np.isfinite(np.stack(poses)))))
+    app.terminate()
+    del app
+    rm = FeatsenseApp(params, device=device, in_memory_map=True)
+    if rm.mapping.fusion != "raymarch":
+        raise AssertionError("featsense's default fusion is not raymarch")
+    t0 = time.perf_counter()
+    rm_poses = [rm.process_scan(s, 0.1 * i)
+                for i, s in enumerate(scans[:cfg["raymarch_scans"]])]
+    torch.cuda.synchronize()
+    rep["raymarch"] = dict(
+        scans=len(rm_poses), wall_s=time.perf_counter() - t0,
+        fused_voxels=int((rm.mapping.state.weight != 0).sum()),
+        finite=bool(np.all(np.isfinite(np.stack(rm_poses)))))
+    rm.terminate()
+    log("[featsense_app]", json.dumps(rep))
+    if not (rep["finite"] and rep["raymarch"]["finite"]):
+        raise AssertionError("non-finite featsense pose")
+    if not rep["final_error_m"] < FEATSENSE_BOUND_M:
+        raise AssertionError(f"featsense final error {rep['final_error_m']:.4f}"
+                             f" m >= {FEATSENSE_BOUND_M} m")
+    if launches["fusion"] == 0:
+        raise AssertionError(f"K1 was not launched: {launches}")
+    if rep["raymarch"]["fused_voxels"] == 0:
+        raise AssertionError("the ray-march back end fused nothing")
+    return rep
+
+
+def phase(name, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     faulthandler.enable()        # a crash in a kernel call prints its stack
@@ -426,15 +720,27 @@ def main() -> int:
     device = torch.device("cuda", 0)
     import warpsense_tpu_torch  # noqa: F401  (TF32 off)
 
-    card = record_card(torch)
-    build_kernels()
-    state, k1 = check_fusion(torch, FULL, device)
-    k2 = check_fields(torch, state, FULL["tau"])
-    times = time_kernels(torch, FULL, state)
+    card = phase("card", record_card, torch)
+    phase("build", build_kernels)
+    state, k1 = phase("fusion_check", check_fusion, torch, FULL, device)
+    k2 = phase("fields_check", check_fields, torch, state, FULL["tau"])
+    times = phase("kernel_times", time_kernels, torch, FULL, state)
+    del state
+    state, k1_default = phase("fusion_check_default", check_fusion, torch,
+                              default_fusion_cfg(), device)
     del state
     torch.cuda.empty_cache()
-    app = run_app(torch, APP, device)
-    profile_app(torch, APP, device)
+    app = phase("fast_app", run_app, torch, APP, device)
+    phase("profile", profile_app, torch, APP, device)
+    torch.cuda.empty_cache()
+    parity = phase("parity_app", run_parity_app, torch, PARITY, device)
+    torch.cuda.empty_cache()
+    phase("raymarch", check_raymarch, torch, device, card["nvidia_smi"])
+    torch.cuda.empty_cache()
+    feats = phase("featsense_app", run_featsense_app, torch, FEATSENSE,
+                  device)
+    paths = {"fast_app": app["launches"], "parity_app": parity["launches"],
+             "featsense_app": feats["launches"]}
 
     kernels = [
         {"name": "fusion_K1", "route": "cuda",
@@ -442,7 +748,8 @@ def main() -> int:
          "replaces": "warpsense_tpu/kernels/tsdf_pallas.py:133",
          "also_replaces": "warpsense_tpu/kernels/tsdf_pallas.py:82",
          "launches": app["launches"]["fusion"],
-         "max_abs_err": max(c["max_abs_err"] for c in k1),
+         "launches_by_path": {k: v["fusion"] for k, v in paths.items()},
+         "max_abs_err": max(c["max_abs_err"] for c in k1 + k1_default),
          "ms": times["fusion_level"]["ms"],
          "plain_ms": times["fusion_level"]["plain_ms"],
          "tilt_ms": times["fusion_tilt"]["ms"],
@@ -451,6 +758,7 @@ def main() -> int:
          "source": "warpsense_tpu_torch/csrc/fields.cu",
          "replaces": "warpsense_tpu/kernels/fields_pallas.py:79",
          "launches": app["launches"]["fields"],
+         "launches_by_path": {k: v["fields"] for k, v in paths.items()},
          "max_abs_err": k2["max_abs_err"],
          "ms": times["fields_packed"]["ms"],
          "plain_ms": times["fields_packed"]["plain_ms"],

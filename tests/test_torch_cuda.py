@@ -1,7 +1,9 @@
 """CUDA kernels K1 (fusion) and K2 (fields) against their plain PyTorch
-versions on the card.  A CUDA kernel has no CPU mode, so every test here
-needs a GPU and skips without one.  This file imports no JAX (the GPU
-machine has none); run it there without the JAX conftest:
+versions on the card, and the parity-mode app, the ray march and the
+featsense app on the card against the same code on the CPU.  A CUDA kernel
+has no CPU mode, so every test here needs a GPU and skips without one.
+This file imports no JAX (the GPU machine has none); run it there without
+the JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -18,8 +20,11 @@ from warpsense_tpu_torch.kernels.fields import fields_packed
 from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
 from warpsense_tpu_torch.map.local_map import clone_state, create_state
 from warpsense_tpu_torch.ops import registration as treg
+from warpsense_tpu_torch.ops.tsdf import plan_raymarch
 from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
                                                      sweep_merge_plain)
+from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
+from warpsense_tpu_torch.pipeline.fusion_backend import fuse_cloud
 from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
 
 TAU, RES = 600, 64
@@ -129,3 +134,96 @@ def test_app_on_cuda_launches_kernels_and_tracks(cuda):
     # on the card, so poses agree to the registration tolerance
     assert np.max(np.abs(poses["cpu"][:, :3, 3]
                          - poses["cuda"][:, :3, 3])) < 0.5
+
+
+def _walk_scans(n, channels, columns):
+    world = BoxWorld.default()
+    rng = np.random.default_rng(0)
+    return [render_scan(world, p, channels=channels, columns=columns,
+                        noise_std=0.002, rng=rng)
+            for p in walk_trajectory(n, step_m=0.1)]
+
+
+def test_parity_app_on_cuda_launches_k1_and_tracks_like_cpu(cuda):
+    """Parity mode (fields and GN in plain PyTorch, fusion through K1): the
+    card and the CPU agree on the first scans; later ones drift apart as
+    the GN's float32 sums run in another order (bound 20 mm)."""
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 64, "max_weight": 10,
+                "size": {"x": 20, "y": 16, "z": 7}, "shift": 0.18,
+                "update_distance": 0.05},
+        "registration": {"max_iterations": 200, "epsilon": 0.03,
+                         "it_weight_gradient": 0.1, "mode": "parity"},
+        "lidar": {"channels": 32, "hresolution": 256}})
+    scans = _walk_scans(4, 32, 256)
+    poses = {}
+    for dev in ("cpu", "cuda"):
+        app = WarpsenseApp(params, in_memory_map=True, capacity=4096,
+                           device=dev)
+        f0 = fusion_sweep_merge.launches
+        poses[dev] = np.stack([app.cloud_callback(s, 0.1 * i)
+                               for i, s in enumerate(scans)])
+        launched = fusion_sweep_merge.launches - f0
+        app.terminate()
+        assert (launched > 0) == (dev == "cuda")
+    assert np.all(np.isfinite(poses["cuda"]))
+    diff = np.abs(poses["cpu"][:, :3, 3] - poses["cuda"][:, :3, 3])
+    assert diff[:2].max() < 0.5 and diff.max() < 20.0, diff
+
+
+def test_raymarch_cuda_matches_cpu(cuda):
+    """The ray march is plain PyTorch: on the card it equals the CPU run
+    bit for bit (integer keys, a scatter-min, float32 math without
+    contraction)."""
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 64, "max_weight": 10},
+        "lidar": {"channels": 128, "hresolution": 1024}})
+    size = (97, 89, 41)
+    pts = torch.as_tensor(box_room_cloud(20000, 2700, 1000))
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [90.0, -30.0, 10.0]
+    steps = plan_raymarch(600, 64, 50000)
+    out = []
+    for dev in ("cpu", "cuda"):
+        st = create_state(size, 600, 0, device=dev, force_odd=False)
+        for _ in range(2):
+            fuse_cloud(st, pts.to(dev), mask.to(dev), pose, params=params,
+                       size=size, fusion="raymarch", max_steps=steps[0],
+                       max_isteps=steps[1])
+        out.append(st)
+    assert torch.equal(out[0].value, out[1].value.cpu())
+    assert torch.equal(out[0].weight, out[1].weight.cpu())
+    assert int((out[0].weight != 0).sum()) > 10_000
+
+
+def test_featsense_app_on_cuda(cuda):
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 24, "y": 20, "z": 8}, "shift": 8.0,
+                "update_distance": 0.08},
+        "floam": {"min_distance": 0.5, "max_distance": 40.0,
+                  "edge_threshold": 0.5, "surf_threshold": 0.05,
+                  "edge_resolution": 0.15, "optimization_steps": 3,
+                  "enrich": 4, "vgicp_fitness_score": 6.0},
+        "lidar": {"channels": 32, "hresolution": 512}})
+    truth = np.stack([np.eye(4)] * 5)
+    for i in range(5):
+        c, s = np.cos(0.02 * i), np.sin(0.02 * i)
+        truth[i][:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        truth[i][:3, 3] = [0.12 * i, 0.04 * i, 0.0]
+    rng = np.random.default_rng(0)
+    scans = [render_scan(BoxWorld.default(), p, channels=32, columns=512,
+                         noise_std=0.003, rng=rng) for p in truth]
+    kw = dict(edge_capacity=512, surf_capacity=1024, cloud_capacity=4096,
+              odom_kwargs=dict(edge_map_capacity=2048,
+                               surf_map_capacity=4096),
+              in_memory_map=True, device="cuda")
+    for fusion in ("auto", "raymarch"):
+        app = FeatsenseApp(params, fusion=fusion, **kw)
+        f0 = fusion_sweep_merge.launches
+        poses = [app.process_scan(s) for s in scans]
+        app.terminate()
+        assert np.all(np.isfinite(np.stack(poses)))
+        assert np.linalg.norm(poses[-1][:3, 3] - truth[-1][:3, 3]) < 0.12
+        assert (fusion_sweep_merge.launches > f0) == (fusion == "auto")

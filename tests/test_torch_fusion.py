@@ -349,6 +349,11 @@ def test_fusion_dispatch():
     R, level = tfb.grid_rotation_for(pose, VFOV)
     assert not level and np.allclose(R.numpy(), _tilt(3.0))
     assert abs(tfb.sensor_tilt_deg(pose) - 3.0) < 1e-3
-    with pytest.raises(NotImplementedError, match="10"):
+    # the ray march needs its plan (tests/test_torch_raymarch.py runs it);
+    # an unknown name is refused
+    with pytest.raises(ValueError, match="max_steps"):
         tfb.fuse_cloud(_tfresh(), None, None, pose, params=Params(),
                        size=SIZE, fusion="raymarch")
+    with pytest.raises(ValueError, match="unknown fusion"):
+        tfb.fuse_cloud(_tfresh(), None, None, pose, params=Params(),
+                       size=SIZE, fusion="pallas")

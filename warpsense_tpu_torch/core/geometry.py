@@ -79,6 +79,88 @@ def xi_to_transform(xi: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product over the last axis, written as ``jnp.cross`` writes
+    it (three products and a difference per component), so float32
+    results round identically."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product, quaternions as (x, y, z, w)."""
+    x1, y1, z1, w1 = q1[0], q1[1], q1[2], q1[3]
+    x2, y2, z2, w2 = q2[0], q2[1], q2[2], q2[3]
+    return torch.stack([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ])
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v (..., 3) by the unit quaternion q = (x, y, z, w)."""
+    u = q[:3].expand(v.shape)
+    uv = cross(u, v)
+    return v + 2.0 * (q[3] * uv + cross(u, uv))
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (x, y, z, w) -> 3x3 rotation matrix."""
+    x, y, z, w = q[0], q[1], q[2], q[3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def se3_exp(xi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """se(3) exponential -> (unit quaternion (x, y, z, w), translation);
+    ``xi`` = (omega[3], upsilon[3]).  Taylor fallback below 1e-10
+    (lidar_optimization.cpp:109-146).  Branch-free, so it stays on the
+    device of ``xi``."""
+    omega, upsilon = xi[:3], xi[3:]
+    theta = torch.sqrt(torch.sum(omega * omega))
+    half = 0.5 * theta
+    theta_sq = theta * theta
+    small = theta < 1e-10
+    one = torch.ones_like(theta)
+    imag = torch.where(
+        small, 0.5 - 0.0208333 * theta_sq + 0.000260417 * theta_sq * theta_sq,
+        torch.sin(half) / torch.where(small, one, theta))
+    q = torch.cat([imag * omega, torch.cos(half).reshape(1)])
+    q = q / torch.sqrt(torch.sum(q * q))
+    Omega = skew(omega)
+    safe_t = torch.where(small, one, theta)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    J = torch.where(
+        small, quat_to_mat(q),
+        eye + (1 - torch.cos(theta)) / (safe_t * safe_t) * Omega
+        + (theta - torch.sin(theta)) / (safe_t ** 3) * (Omega @ Omega))
+    return q, J @ upsilon
+
+
+def pose_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous pose from a 3x3 rotation and a translation."""
+    out = torch.zeros((4, 4), dtype=R.dtype, device=R.device)
+    out[:3, :3] = R
+    out[:3, 3] = t
+    out[3, 3] = 1.0
+    return out
+
+
+def to_map(pose_mm: torch.Tensor, resolution: int) -> torch.Tensor:
+    """mm pose (4x4 float) -> voxel index of its translation (floor)."""
+    return torch.floor(pose_mm[:3, 3] / resolution).to(torch.int32)
+
+
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """3x3 rotation matrix -> unit quaternion (x, y, z, w); picks the best
     conditioned of the four constructions like the JAX function."""

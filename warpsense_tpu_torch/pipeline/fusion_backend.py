@@ -1,17 +1,21 @@
-"""Fusion-backend dispatch for the pipelines.
+"""Fusion-backend dispatch shared by both pipelines.
 
 Counterpart of ``warpsense_tpu/pipeline/fusion_backend.py``: resolves the
-fusion name, picks the beam-grid attitude, and runs the projective update.
-The device of the state picks the implementation: a CUDA state runs kernel
-K1 (``kernels/fusion.py``), a CPU state its plain version.
+fusion name, picks the beam-grid attitude, and runs the projective update
+or the ray march.  For the projective update the device of the state picks
+the implementation: a CUDA state runs kernel K1 (``kernels/fusion.py``), a
+CPU state its plain version.  The ray march is plain PyTorch on either.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.consts import MATRIX_RESOLUTION
+from ..core.geometry import to_int_mat, transform_point_fixed
 from ..kernels._build import MAX_VOXELS
 from ..map.local_map import LocalMapState
+from ..ops.tsdf import tsdf_update
 from ..ops.tsdf_projective import tsdf_update_projective
 
 
@@ -59,25 +63,41 @@ def resolve_fusion(fusion: str, *, size, channels: int,
 
 
 def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
-               params, size, fusion: str) -> LocalMapState:
+               params, size, fusion: str, max_steps: int | None = None,
+               max_isteps: int | None = None) -> LocalMapState:
     """One fusion step of a map-frame mm cloud captured at ``pose_mm``, IN
     PLACE on ``state``'s planes.
 
-    ``fusion``: "projective" (bins with the sensor attitude),
-    "projective-level" (bins on the level map-aligned grid inside the tilt
-    envelope and falls back to the attitude grid beyond it) or "auto"."""
+    ``fusion``: "raymarch" (the reference's ray march, ``ops/tsdf.py``;
+    needs ``max_steps``/``max_isteps`` from ``plan_raymarch``),
+    "projective" (bins with the sensor attitude), "projective-level" (bins
+    on the level map-aligned grid inside the tilt envelope and falls back
+    to the attitude grid beyond it) or "auto"."""
     m = params.map
     fusion = resolve_fusion(fusion, size=size,
                             channels=params.lidar.channels,
                             columns=params.lidar.hresolution)
-    if fusion == "raymarch":
-        raise NotImplementedError(
-            "ray-march fusion is not ported yet (ROADMAP item 10)")
-    if fusion not in ("projective", "projective-level"):
+    if fusion not in ("raymarch", "projective", "projective-level"):
         raise ValueError(f"unknown fusion {fusion!r}")
     scanner_pos = torch.as_tensor(
         np.floor(np.asarray(pose_mm)[:3, 3] / m.resolution).astype(np.int32),
         device=state.value.device)
+    if fusion == "raymarch":
+        if max_steps is None or max_isteps is None:
+            raise ValueError("raymarch fusion needs max_steps and max_isteps "
+                             "(ops.tsdf.plan_raymarch)")
+        # the sensor's up vector in the map frame, MR-scaled, through the
+        # same fixed-point rotation the reference uses
+        int_rot = to_int_mat(torch.as_tensor(np.asarray(pose_mm, np.float32)))
+        int_rot[:3, 3] = 0
+        up = transform_point_fixed(
+            torch.tensor([0, 0, MATRIX_RESOLUTION], dtype=torch.int32),
+            int_rot)
+        return tsdf_update(
+            state, pts_mm, mask, scanner_pos, up, size=size, tau=m.tau,
+            max_weight=m.max_weight_scaled, resolution=m.resolution,
+            max_steps=max_steps, max_isteps=max_isteps,
+            channels=params.lidar.channels, vfov_deg=params.lidar.vfov)
     if fusion == "projective":
         grid_rot, level = torch.as_tensor(
             np.asarray(pose_mm, np.float32)[:3, :3].copy()), False
