@@ -9,13 +9,21 @@ Phases (each raises on failure; nothing falls back to the CPU):
 1. record the card and the toolchain;
 2. build the CUDA kernels from warpsense_tpu_torch/csrc with nvcc;
 3. fusion kernel K1 against its plain PyTorch version at the full
-   625 x 625 x 235 window with a 128 x 1024 scanner: two level fusions and
-   one at a 4 degree tilt, 0 value/weight mismatches required; then the
-   same three cases at configs/default.yaml's shapes (625 x 625 x 391,
-   tau 1000 mm, its max_weight), which the parity and featsense apps run;
+   625 x 625 x 235 window with a 128 x 1024 scanner: two level fusions,
+   one at a 4 degree tilt, a level fusion whose cloud leaves most columns
+   without a hit, and one on a window whose ring offset is nonzero on all
+   three axes (a window after a shift); 0 value/weight mismatches
+   required; then the same cases at configs/default.yaml's shapes
+   (625 x 625 x 391, tau 1000 mm, its max_weight), which the parity and
+   featsense apps run;
 4. fields kernel K2 (packed and exact) against its plain version on the
    fused map, 0 mismatches required;
-5. kernel and plain times (CUDA events, median of 7) with achieved GB/s;
+5. kernel and plain times (CUDA events, median of 7), K1 level and tilt
+   and K2 at 625 x 625 x 235, K1 level at the default shapes, each beside
+   its bound: the least time an H100 SXM could take for the same work
+   (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is
+   longer; K1's bytes and operations counted from this run's inputs; K1
+   also beside the floor of its design's own traffic, sweep_floor_ms);
 6. WarpsenseApp(device="cuda") in fast mode at the application config:
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
@@ -65,6 +73,32 @@ APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
 ATE_BOUND_M = 0.02
 TILT_DEG = 4.0
 REPS = 7
+# the K1 ring-offset case moves the window's ring by these voxels per axis
+RING_SHIFT = (211, 97, 58)
+# H100 SXM peaks (NVIDIA data sheet) against which bound_ms is counted
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations of K1 (csrc/fusion.cu), counted from its source: each
+# arithmetic op, sqrt, division, comparison, min/max, rint/floor/trunc and
+# int<->float conversion counts one.  Per beam (prepare_kernel): 3
+# subtractions and the running maximum of finite ranges.  Level sweep: per
+# (x, y) column its terms (rho2, atan2_poly, inv_rho, colf, col, col_res)
+# and m + tau; per voxel inside the cull's run its acceptance tests (r_vox,
+# ring, v_res, h_res, the range test).  General sweep: per voxel within
+# range of the table (fusion_work's ranged_voxels) the rotation, the
+# column terms and the same tests; per voxel beyond it only the rotation,
+# r_vox and the range test against the table's largest range.  Per voxel
+# that passes the tests, its value and weight.  These count the work of
+# this implementation on this run's data (the voxels its culls leave), not
+# the least work the function could need, so a share of the bound is an
+# upper estimate.  The cull's searches are the kernel's own overhead and
+# are not counted.
+K1_OPS_PER_BEAM = 5
+K1_OPS_PER_COLUMN_LEVEL = 39
+K1_OPS_PER_VOXEL_LEVEL = 39
+K1_OPS_PER_VOXEL_GENERAL = 92
+K1_OPS_PER_VOXEL_OUT_OF_RANGE = 22
+K1_OPS_PER_FUSED_VOXEL = 21
 # parity mode at the shipped default config, on APP's scans.  Cut: 10
 # scans, update_distance 0 (fuse every scan), shift 0 (the window-shift
 # check runs every scan: the reference's GN creeps ~1.5 mm a scan here, so
@@ -161,10 +195,44 @@ def tilt_rotation(torch, deg: float):
 
 
 def fusion_cases(torch):
-    """(scanner voxel, rotation, level) of the K1 checks, in order."""
+    """The K1 checks, in order: name, scanner voxel, grid rotation, level
+    or not, ``ring`` (move the window's ring by RING_SHIFT) and ``cloud``
+    ("room", or "wedge": a 60 degree wedge of it, so that most azimuth
+    columns see no return)."""
     eye = torch.eye(3, dtype=torch.float32)
-    return [((0, 0, 0), eye, True), ((1, 1, 0), eye, True),
-            ((0, 0, 0), tilt_rotation(torch, TILT_DEG), False)]
+    case = dict(scanner=(0, 0, 0), R=eye, level=True, ring=False,
+                cloud="room")
+    return [dict(case, name="level"),
+            dict(case, name="level_moved", scanner=(1, 1, 0)),
+            dict(case, name="tilt", R=tilt_rotation(torch, TILT_DEG),
+                 level=False),
+            dict(case, name="level_wedge", scanner=(-2, 1, 0),
+                 cloud="wedge"),
+            dict(case, name="level_ring_offset", scanner=(3, -2, 1),
+                 ring=True)]
+
+
+def case_inputs(torch, cfg, state, case, pts, mask):
+    """(state, fusion_inputs) of one K1 case: the state is ``state`` or, for
+    a ring case, a view of its planes with the ring moved."""
+    from warpsense_tpu_torch.ops.tsdf_projective import fusion_inputs
+    device = state.value.device
+    if case["ring"]:
+        size = cfg["size"]
+        state = state._replace(
+            pos=torch.tensor(case["scanner"], dtype=torch.int32,
+                             device=device),
+            offset=torch.tensor([(s // 2 + d) % s for s, d in
+                                 zip(size, RING_SHIFT)], dtype=torch.int32,
+                                device=device))
+    if case["cloud"] == "wedge":
+        mask = mask & (pts[:, 0] > 0) & (pts[:, 1].abs() * 100
+                                         < 58 * pts[:, 0])
+    spos = torch.tensor(case["scanner"], dtype=torch.int32, device=device)
+    return state, fusion_inputs(
+        state, pts, mask, spos, case["R"], size=cfg["size"],
+        tau=cfg["tau"], resolution=cfg["res"], channels=cfg["channels"],
+        columns=cfg["columns"], vfov_deg=cfg["vfov_deg"])
 
 
 def room_points(torch, cfg, device):
@@ -182,8 +250,7 @@ def check_fusion(torch, cfg, device):
     both).  Returns (kernel state, per-case report)."""
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.map.local_map import clone_state, create_state
-    from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
-                                                         sweep_merge_plain)
+    from warpsense_tpu_torch.ops.tsdf_projective import sweep_merge_plain
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
               channels=cfg["channels"], columns=cfg["columns"],
               vfov_deg=cfg["vfov_deg"])
@@ -193,28 +260,30 @@ def check_fusion(torch, cfg, device):
                         force_odd=False)
     st_p = clone_state(st_k)
     report = []
-    for spos, R, level in fusion_cases(torch):
-        spos_t = torch.tensor(spos, dtype=torch.int32, device=device)
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            st_k, pts, mask, spos_t, R, size=cfg["size"], **kw)
-        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, R, max_weight=mw, level=level,
-                           **kw)
+    for c in fusion_cases(torch):
+        sk, (rng_tab, endpoint, smm, cx, cy, cz) = case_inputs(
+            torch, cfg, st_k, c, pts, mask)
+        fusion_sweep_merge(sk.value, sk.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, c["R"], max_weight=mw,
+                           level=c["level"], **kw)
         sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, R, max_weight=mw, **kw)
+                          endpoint, smm, c["R"], max_weight=mw, **kw)
         dv = int((st_k.value != st_p.value).sum())
         dw = int((st_k.weight != st_p.weight).sum())
         err = int((st_k.value.int() - st_p.value.int()).abs().max()) + int(
             (st_k.weight.int() - st_p.weight.int()).abs().max())
         fused = int((st_k.weight != 0).sum())
-        case = dict(size=list(cfg["size"]), tau=cfg["tau"],
-                    scanner=list(spos), level=level, value_mismatch=dv,
+        case = dict(name=c["name"], size=list(cfg["size"]), tau=cfg["tau"],
+                    scanner=list(c["scanner"]), level=c["level"],
+                    z_rotation=int(torch.argmin(cz)), value_mismatch=dv,
                     weight_mismatch=dw, max_abs_err=err, fused_voxels=fused)
         log("[K1]", json.dumps(case))
         report.append(case)
         if dv or dw:
             raise AssertionError(f"K1 disagrees with its plain version: {case}")
-    if report[-1]["fused_voxels"] == 0:
+        if c["ring"] and case["z_rotation"] == 0:
+            raise AssertionError("the ring case did not rotate z")
+    if report[0]["fused_voxels"] == 0:
         raise AssertionError("K1 fused nothing")
     return st_k, report
 
@@ -279,15 +348,46 @@ def time_ms(torch, fn, setup=None, reps=REPS) -> float:
     return times[len(times) // 2]
 
 
-def time_kernels(torch, cfg, state):
-    """Kernel and plain times at the full window; each fusion starts from
-    a copy of the fused map (the copy is outside the timed region)."""
-    from warpsense_tpu_torch.kernels.fields import fields_packed
+def bound(nbytes: int, ops: int, ms: float) -> dict:
+    """The least time the card could take for work of ``nbytes`` bytes and
+    ``ops`` float32 operations, what bounds it, and the share of it that
+    a kernel taking ``ms`` reaches."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    b = max(bytes_ms, ops_ms)
+    return dict(bytes=nbytes, ops=ops, bound_ms=b,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                share_of_bound=b / ms)
+
+
+def fusion_cost(work: dict, *, channels: int, columns: int, X: int, Y: int,
+                Z: int, level: bool) -> dict:
+    """Bytes and float32 ops of one K1 call, from ``fusion_work``'s counts:
+    ``bytes``, what the function must move (the int16 value and weight of
+    each fused voxel read and written, the float4 beam table and the three
+    coordinate vectors read once), ``ops`` (K1_OPS_*), and ``sweep_bytes``,
+    what this design moves: it loads the value and weight of every voxel
+    it sweeps ahead of that voxel's tests."""
+    table = 16 * channels * columns + 4 * (X + Y + Z)
+    ops = (K1_OPS_PER_BEAM * channels * columns
+           + K1_OPS_PER_FUSED_VOXEL * work["fused_voxels"])
+    if level:
+        ops += (K1_OPS_PER_COLUMN_LEVEL * work["columns"]
+                + K1_OPS_PER_VOXEL_LEVEL * work["swept_voxels"])
+    else:
+        ops += (K1_OPS_PER_VOXEL_GENERAL * work["ranged_voxels"]
+                + K1_OPS_PER_VOXEL_OUT_OF_RANGE
+                * (work["voxels"] - work["ranged_voxels"]))
+    return dict(bytes=8 * work["fused_voxels"] + table, ops=ops,
+                sweep_bytes=4 * (work["swept_voxels"] + work["fused_voxels"])
+                + table)
+
+
+def time_fusion(torch, cfg, state, names, bounds=True):
+    """K1 times of the named fusion cases on ``state`` (each run starts from
+    a copy of it, made outside the timed region); with ``bounds``, also the
+    plain times and each case's bound, counted from its inputs."""
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
-    from warpsense_tpu_torch.ops.registration import (
-        precompute_fields_packed, precompute_fields_packed2)
-    from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
-                                                         sweep_merge_plain)
     device = state.value.device
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
               channels=cfg["channels"], columns=cfg["columns"],
@@ -301,38 +401,62 @@ def time_kernels(torch, cfg, state):
         work[1].copy_(state.weight)
 
     out = {}
-    nvox = state.value.numel()
-    cases = fusion_cases(torch)
-    for name, (spos, R, level) in (("level", cases[0]), ("tilt", cases[2])):
-        spos_t = torch.tensor(spos, dtype=torch.int32, device=device)
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            state, pts, mask, spos_t, R, size=cfg["size"], **kw)
-        args = (cx, cy, cz, rng_tab, endpoint, smm, R)
+    for c in fusion_cases(torch):
+        if c["name"] not in names:
+            continue
+        _, inputs = case_inputs(torch, cfg, state, c, pts, mask)
+        rng_tab, endpoint, smm, cx, cy, cz = inputs
+        args = (cx, cy, cz, rng_tab, endpoint, smm, c["R"])
+        level = c["level"]
         k_ms = time_ms(torch, lambda: fusion_sweep_merge(
             work[0], work[1], *args, max_weight=mw, level=level, **kw),
             setup=reset)
-        p_ms = time_ms(torch, lambda: sweep_merge_plain(
-            work[0], work[1], *args, max_weight=mw, **kw), setup=reset,
-            reps=5)
-        out[f"fusion_{name}"] = dict(ms=k_ms, plain_ms=p_ms)
+        out[c["name"]] = dict(size=list(cfg["size"]), tau=cfg["tau"],
+                              ms=k_ms)
+        if bounds:
+            from warpsense_tpu_torch.ops.tsdf_projective import (
+                fusion_work, sweep_merge_plain)
+            p_ms = time_ms(torch, lambda: sweep_merge_plain(
+                work[0], work[1], *args, max_weight=mw, **kw), setup=reset,
+                reps=5)
+            counts = fusion_work(*args, level=level, **kw)
+            X, Y, Z = cfg["size"]
+            cost = fusion_cost(counts, channels=cfg["channels"],
+                               columns=cfg["columns"], X=X, Y=Y, Z=Z,
+                               level=level)
+            # the floor of this design's own traffic, beside the bound
+            sweep_ms = max(cost["sweep_bytes"] / HBM_BYTES_PER_S,
+                           cost["ops"] / F32_OPS_PER_S) * 1e3
+            out[c["name"]].update(
+                plain_ms=p_ms, library_ms=None,
+                **bound(cost["bytes"], cost["ops"], k_ms),
+                sweep_bytes=cost["sweep_bytes"], sweep_floor_ms=sweep_ms,
+                work=counts)
+        log(f"[time K1 {c['name']}]", json.dumps(out[c["name"]]))
+    return out
+
+
+def time_fields(torch, cfg, state):
+    """K2 and plain times on ``state``, each beside its bound: the int16
+    value and weight planes read once and one int32 plane written (two in
+    exact mode).  Its work is integer work, far below the float32 rate,
+    so bytes bound it."""
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.ops.registration import (
+        precompute_fields_packed, precompute_fields_packed2)
+    nvox = state.value.numel()
+    out = {}
     for exact in (False, True):
         k_ms = time_ms(torch, lambda: fields_packed(state, tau=cfg["tau"],
                                                     exact=exact))
         plain = (lambda: precompute_fields_packed2(state)) if exact else (
             lambda: precompute_fields_packed(state, tau=cfg["tau"]))
         p_ms = time_ms(torch, plain, reps=5)
-        out["fields_exact" if exact else "fields_packed"] = dict(
-            ms=k_ms, plain_ms=p_ms)
-    # nominal bytes of one pass: fusion reads and writes int16 value and
-    # weight (8 B/voxel; untouched voxels skip both), fields read 4 B and
-    # write 4 B per plane per voxel
-    nbytes = {"fusion_level": 8 * nvox, "fusion_tilt": 8 * nvox,
-              "fields_packed": 8 * nvox, "fields_exact": 12 * nvox}
-    for k, v in out.items():
-        v["nominal_bytes"] = nbytes[k]
-        v["GBps_at_nominal"] = nbytes[k] / (v["ms"] * 1e-3) / 1e9
-        v["plain_GBps_at_nominal"] = nbytes[k] / (v["plain_ms"] * 1e-3) / 1e9
-        log(f"[time {k}]", json.dumps(v))
+        name = "exact" if exact else "packed"
+        out[name] = dict(size=list(cfg["size"]), ms=k_ms, plain_ms=p_ms,
+                         library_ms=None,
+                         **bound((12 if exact else 8) * nvox, 0, k_ms))
+        log(f"[time K2 {name}]", json.dumps(out[name]))
     return out
 
 
@@ -724,10 +848,16 @@ def main() -> int:
     phase("build", build_kernels)
     state, k1 = phase("fusion_check", check_fusion, torch, FULL, device)
     k2 = phase("fields_check", check_fields, torch, state, FULL["tau"])
-    times = phase("kernel_times", time_kernels, torch, FULL, state)
+    k1_times = phase("fusion_times", time_fusion, torch, FULL, state,
+                     ("level", "tilt"))
+    k2_times = phase("fields_times", time_fields, torch, FULL, state)
     del state
+    torch.cuda.empty_cache()
+    default_cfg = default_fusion_cfg()
     state, k1_default = phase("fusion_check_default", check_fusion, torch,
-                              default_fusion_cfg(), device)
+                              default_cfg, device)
+    k1_times_default = phase("fusion_times_default", time_fusion, torch,
+                             default_cfg, state, ("level",))
     del state
     torch.cuda.empty_cache()
     app = phase("fast_app", run_app, torch, APP, device)
@@ -742,6 +872,17 @@ def main() -> int:
     paths = {"fast_app": app["launches"], "parity_app": parity["launches"],
              "featsense_app": feats["launches"]}
 
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+                   "share_of_bound", "library_ms")
+
+    def entry(t):
+        return {k: t[k] for k in timing_keys}
+
+    k1_cases = {"level_full": entry(k1_times["level"]),
+                "tilt_full": entry(k1_times["tilt"]),
+                "level_default": entry(k1_times_default["level"])}
+    k2_cases = {"packed_full": entry(k2_times["packed"]),
+                "exact_full": entry(k2_times["exact"])}
     kernels = [
         {"name": "fusion_K1", "route": "cuda",
          "source": "warpsense_tpu_torch/csrc/fusion.cu",
@@ -750,20 +891,14 @@ def main() -> int:
          "launches": app["launches"]["fusion"],
          "launches_by_path": {k: v["fusion"] for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k1 + k1_default),
-         "ms": times["fusion_level"]["ms"],
-         "plain_ms": times["fusion_level"]["plain_ms"],
-         "tilt_ms": times["fusion_tilt"]["ms"],
-         "tilt_plain_ms": times["fusion_tilt"]["plain_ms"]},
+         **k1_cases["level_full"], "cases": k1_cases},
         {"name": "fields_K2", "route": "cuda",
          "source": "warpsense_tpu_torch/csrc/fields.cu",
          "replaces": "warpsense_tpu/kernels/fields_pallas.py:79",
          "launches": app["launches"]["fields"],
          "launches_by_path": {k: v["fields"] for k, v in paths.items()},
          "max_abs_err": k2["max_abs_err"],
-         "ms": times["fields_packed"]["ms"],
-         "plain_ms": times["fields_packed"]["plain_ms"],
-         "exact_ms": times["fields_exact"]["ms"],
-         "exact_plain_ms": times["fields_exact"]["plain_ms"]},
+         **k2_cases["packed_full"], "cases": k2_cases},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])

@@ -151,19 +151,26 @@ def test_resume_from_jax_map(runs):
 
 def test_parity_mode_and_missing_gpu_raise():
     """Parity mode (the config default) builds; an unknown mode and a CUDA
-    device without a GPU raise."""
+    device without a GPU raise, and the app runs on the card unless told
+    otherwise: without a GPU its default device raises too."""
     params = params_from_dict(dataclasses.asdict(JParams.from_dict(CFG)))
     params.registration.mode = "parity"
-    app = WarpsenseApp(params, in_memory_map=True)
+    app = WarpsenseApp(params, in_memory_map=True, device="cpu")
     assert app.max_steps > 0 and app.max_isteps > 0
     params.registration.mode = "bogus"
     with pytest.raises(ValueError, match="bogus"):
-        WarpsenseApp(params, in_memory_map=True)
+        WarpsenseApp(params, in_memory_map=True, device="cpu")
     params.registration.mode = "fast"
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             WarpsenseApp(params, in_memory_map=True, device="cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            WarpsenseApp(params, in_memory_map=True)
+    else:
+        app = WarpsenseApp(params, in_memory_map=True)
+        assert app.device.type == "cuda"
+        app.terminate()
 
 
 def _ate(poses, gt):
@@ -246,7 +253,7 @@ def test_default_config_runs_parity_mode():
     cfg = Path(warpsense_tpu_torch.__file__).parent / "configs/default.yaml"
     params = Params.from_yaml(cfg)
     assert params.registration.mode == "parity"
-    app = WarpsenseApp(params, in_memory_map=True,
+    app = WarpsenseApp(params, in_memory_map=True, device="cpu",
                        window_size=(121, 121, 61))
     scan = _scans(1, channels=128, columns=1024)[0]
     pose = app.cloud_callback(scan, 0.0)

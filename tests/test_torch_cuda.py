@@ -74,6 +74,43 @@ def test_fusion_kernel_matches_plain(cuda, size, channels, columns):
     assert int((st_k.weight != 0).sum()) > 1000
 
 
+@pytest.mark.parametrize("cloud", ["room", "wedge"])
+def test_fusion_level_kernel_after_shift_and_on_empty_columns(cuda, cloud):
+    """K1's level sweep on a window whose ring offset is nonzero on all
+    three axes (its z coordinates come rotated, so the cull's run of global
+    z can be two runs of array z), with the room cloud or a 60-degree wedge
+    of it that leaves most columns without a hit, the scanner at the center
+    and near the edge: equal to the plain version."""
+    size = (96, 80, 45)
+    kw = dict(tau=TAU, resolution=RES, channels=128, columns=1024,
+              vfov_deg=45.0)
+    pts = torch.as_tensor(box_room_cloud(20000, 2000, 1000), device=cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    if cloud == "wedge":
+        mask = (pts[:, 0] > 0) & (pts[:, 1].abs() * 100 < 58 * pts[:, 0])
+    ring = dict(pos=torch.tensor([3, -2, 1], dtype=torch.int32, device=cuda),
+                offset=torch.tensor([5, 71, 9], dtype=torch.int32,
+                                    device=cuda))
+    st_k = create_state(size, TAU, 0, device=cuda,
+                        force_odd=False)._replace(**ring)
+    st_p = clone_state(st_k)
+    eye = torch.eye(3)
+    for spos in ((3, -2, 1), (40, -30, 15)):
+        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            st_k, pts, mask, spos, eye, size=size, **kw)
+        assert int(torch.argmin(cz)) != 0
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, eye, max_weight=2048, level=True,
+                           **kw)
+        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
+                          endpoint, smm, eye, max_weight=2048, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k.value, st_p.value)
+        assert torch.equal(st_k.weight, st_p.weight)
+    assert int((st_k.weight != 0).sum()) > 1000
+
+
 @pytest.mark.parametrize("size", [(37, 29, 23), (64, 40, 33)])
 @pytest.mark.parametrize("exact", [False, True])
 def test_fields_kernel_matches_plain(cuda, size, exact):

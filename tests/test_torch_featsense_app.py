@@ -62,7 +62,8 @@ def runs(data, tmp_path_factory):
     scans, _, jparams, tparams = data
     japp = JApp(jparams, map_path=tmp_path_factory.mktemp("fs") / "jax.h5",
                 **KW)
-    tapp = FeatsenseApp(tparams, in_memory_map=True, profile=True, **KW)
+    tapp = FeatsenseApp(tparams, in_memory_map=True, profile=True,
+                        device="cpu", **KW)
     jp = np.stack([japp.process_scan(s) for s in scans])
     tp = np.stack([tapp.process_scan(s) for s in scans])
     out = dict(jp=jp, tp=tp, jgicp=np.stack(japp.mapping.gicp_path),
@@ -107,7 +108,8 @@ def test_featsense_auto_fusion_tracks(data):
     """fusion="auto" (the level-grid projective update, kernel K1 on a
     card) in the back end."""
     scans, truth, _, tparams = data
-    app = FeatsenseApp(tparams, in_memory_map=True, fusion="auto", **KW)
+    app = FeatsenseApp(tparams, in_memory_map=True, fusion="auto",
+                       device="cpu", **KW)
     poses = [app.process_scan(s) for s in scans[:4]]
     app.terminate()
     assert np.linalg.norm(poses[-1][:3, 3] - truth[3][:3, 3]) < 0.12
@@ -116,10 +118,11 @@ def test_featsense_auto_fusion_tracks(data):
 
 def test_threaded_runner_matches_sequential(data, tmp_path):
     scans, _, _, tparams = data
-    seq = FeatsenseApp(tparams, in_memory_map=True, **KW)
+    seq = FeatsenseApp(tparams, in_memory_map=True, device="cpu", **KW)
     for scan in scans[:4]:
         seq.process_scan(scan)
-    thr_app = FeatsenseApp(tparams, in_memory_map=True, **KW)
+    thr_app = FeatsenseApp(tparams, in_memory_map=True, device="cpu",
+                           **KW)
     runner = ThreadedFeatsenseRunner(thr_app, viz_path=str(tmp_path / "t.tum"))
     runner.start()
     for i, scan in enumerate(scans[:4]):
@@ -136,9 +139,28 @@ def test_threaded_runner_matches_sequential(data, tmp_path):
     thr_app.terminate()
 
 
+def test_default_device_is_the_card(data):
+    """FeatsenseApp and FeatsenseMapping run on the card unless told
+    otherwise: without a GPU their default device raises."""
+    import torch
+
+    from warpsense_tpu_torch.pipeline.featsense import FeatsenseMapping
+    tparams = data[3]
+    if torch.cuda.is_available():
+        app = FeatsenseApp(tparams, in_memory_map=True, **KW)
+        assert app.device.type == "cuda"
+        assert app.mapping.device.type == "cuda"
+        app.terminate()
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        FeatsenseApp(tparams, in_memory_map=True, **KW)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FeatsenseMapping(tparams, in_memory_map=True)
+
+
 def test_mapping_gates_on_update_distance(data):
     scans, _, _, tparams = data
-    app = FeatsenseApp(tparams, in_memory_map=True, **KW)
+    app = FeatsenseApp(tparams, in_memory_map=True, device="cpu", **KW)
     app.process_scan(scans[0])
     assert app.mapping.initialized
     flat = np.ascontiguousarray(scans[0].reshape(-1, 3))
@@ -165,7 +187,7 @@ def test_featsense_resume_from_jax_map(data, tmp_path):
     jm = JMapping(jparams, tmp_path / "jax.h5", resume=True,
                   fusion="projective-level")
     tm = FeatsenseMapping(tparams, tmp_path / "for_torch.h5", resume=True,
-                          fusion="projective-level")
+                          fusion="projective-level", device="cpu")
     assert np.any(tm.pose_offset[:3, 3] != 0)
     np.testing.assert_array_equal(tm.pose_offset, jm.pose_offset)
     np.testing.assert_array_equal(tm.state.pos.numpy(),
@@ -190,7 +212,7 @@ def test_featsense_shift_matches_jax(data, tmp_path):
     japp = JApp(jparams, map_path=tmp_path / "jax.h5",
                 fusion="projective-level", **KW)
     tapp = FeatsenseApp(tparams, in_memory_map=True,
-                        fusion="projective-level", **KW)
+                        fusion="projective-level", device="cpu", **KW)
     for scan in scans[:4]:
         japp.process_scan(scan)
         tapp.process_scan(scan)

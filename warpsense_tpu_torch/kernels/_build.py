@@ -29,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # both kernels index voxels with 32-bit unsigned arithmetic
 MAX_VOXELS = 2 ** 31 - 1
+# CUDA's limit on a grid's y extent (K1 puts the window's x there)
+MAX_GRID_Y = 65535
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

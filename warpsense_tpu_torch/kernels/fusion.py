@@ -26,10 +26,10 @@ def _lib():
     lib = _build.load("fusion")
     fn = lib.ws_fusion_sweep_merge
     if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                       _I, _I, _VP]
+        fn.argtypes = [_VP] * 11 + [_I] * 7 + [_VP]
         fn.restype = _I
         lib.ws_fusion_num_consts.restype = _I
+        lib.ws_fusion_max_channels.restype = _I
     return lib
 
 
@@ -52,21 +52,16 @@ def fusion_consts(rotation: torch.Tensor, *, tau, resolution, channels,
             1.0 / (tau - weight_epsilon)]
 
 
-def beam_table_float4(rng_tab, endpoint, scanner_mm) -> torch.Tensor:
-    """(beams, 4) float32 rows (bx, by, bz, range): scanner-relative
-    endpoints (the same f32 subtraction the sweep does) and range."""
-    rel = endpoint - scanner_mm.to(torch.float32)
-    return torch.cat([rel, rng_tab[:, None]], dim=1).contiguous()
-
-
 def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
                        scanner_mm, rotation, *, tau, max_weight, resolution,
                        channels, columns, vfov_deg, level: bool) -> None:
     """Sweep the (X, Y, Z) window given by per-axis scanner-relative
-    coordinates ``cx, cy, cz`` (f32 mm) against the beam table and merge
-    the result into ``value``/``weight`` (int16) IN PLACE.
+    coordinates ``cx, cy, cz`` (f32 mm, array order, as
+    ``ops/tsdf_projective.relative_coords`` gives them: ``cz`` ascending up
+    to the ring's rotation) against the beam table and merge the result
+    into ``value``/``weight`` (int16) IN PLACE.
 
-    ``level=True`` runs the level-grid instantiation, which requires
+    ``level=True`` runs the level sweep (``level_kernel``), which requires
     ``rotation`` to be the identity."""
     if level and not torch.equal(rotation.detach().cpu().to(torch.float32),
                                  torch.eye(3)):
@@ -87,22 +82,40 @@ def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
         raise ValueError("value/weight must be contiguous and of one shape")
     if X * Y * Z > _build.MAX_VOXELS:
         raise ValueError("window exceeds the kernel's 32-bit voxel index")
+    if not 0 < X <= _build.MAX_GRID_Y or min(Y, Z) < 1:
+        raise ValueError(f"window extents {(X, Y, Z)} out of the kernel's "
+                         f"launch range (1 <= X <= {_build.MAX_GRID_Y})")
     coords = [c.to(torch.float32).contiguous() for c in (cx, cy, cz)]
     if [c.numel() for c in coords] != [X, Y, Z] or any(
             c.device != value.device for c in coords):
         raise ValueError("cx/cy/cz must match the window extents and device")
     if rng_tab.numel() != channels * columns:
         raise ValueError("beam table size != channels * columns")
-    beams = beam_table_float4(rng_tab, endpoint, scanner_mm).to(value.device)
     lib = _lib()
+    if level and channels > lib.ws_fusion_max_channels():
+        raise ValueError(f"level fusion stages beam rows of at most "
+                         f"{lib.ws_fusion_max_channels()} channels")
+    dev = value.device
+    rng = rng_tab.to(device=dev, dtype=torch.float32).contiguous()
+    ends = endpoint.to(device=dev, dtype=torch.float32).contiguous()
+    scanner = scanner_mm.to(device=dev, dtype=torch.int32).contiguous()
+    if ends.shape != (channels * columns, 3) or scanner.numel() != 3:
+        raise ValueError("endpoint must be (channels * columns, 3) and "
+                         "scanner_mm (3,)")
+    # scratch the kernel fills: float4 beam rows and each row's maximum
+    beams = torch.empty((channels * columns, 4), dtype=torch.float32,
+                        device=dev)
+    rowmax = torch.empty(columns, dtype=torch.float32, device=dev)
     consts = fusion_consts(rotation, **kw)
     assert len(consts) == lib.ws_fusion_num_consts()
     carr = (ctypes.c_float * len(consts))(*consts)
     rc = lib.ws_fusion_sweep_merge(
         value.data_ptr(), weight.data_ptr(), coords[0].data_ptr(),
-        coords[1].data_ptr(), coords[2].data_ptr(), beams.data_ptr(),
-        ctypes.cast(carr, _VP), X, Y, Z, channels, columns, int(max_weight),
-        int(bool(level)), torch.cuda.current_stream(value.device).cuda_stream)
+        coords[1].data_ptr(), coords[2].data_ptr(), rng.data_ptr(),
+        ends.data_ptr(), scanner.data_ptr(), beams.data_ptr(),
+        rowmax.data_ptr(), ctypes.cast(carr, _VP), X, Y, Z, channels,
+        columns, int(max_weight), int(bool(level)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fusion kernel K1")
     fusion_sweep_merge.launches += 1
 

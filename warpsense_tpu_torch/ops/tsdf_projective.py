@@ -181,6 +181,20 @@ def relative_coords(pos, offset, size, scanner_mm, resolution):
         torch.float32) for ax in range(3)]
 
 
+def _sensor_direction(cx, cy, cz, rotation):
+    """The broadcast voxel offsets (x, y, z), the sensor-frame direction
+    d_s = R^T d built from separable parts, its rho2 and its length r_vox."""
+    R = rotation.to(torch.float32)
+    x = cx[:, None, None]
+    y = cy[None, :, None]
+    z = cz[None, None, :]
+    dsx = x * R[0, 0] + y * R[1, 0] + z * R[2, 0]
+    dsy = x * R[0, 1] + y * R[1, 1] + z * R[2, 1]
+    dsz = x * R[0, 2] + y * R[1, 2] + z * R[2, 2]
+    rho2 = dsx * dsx + dsy * dsy
+    return x, y, z, dsx, dsy, dsz, rho2, _sqrt(rho2 + dsz * dsz)
+
+
 def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
                             rotation, *, tau, resolution, channels, columns,
                             vfov_deg):
@@ -190,17 +204,8 @@ def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
 
     (The JAX function takes global voxel coordinates; ``relative_coords``
     computes the same f32 values from them.)"""
-    R = rotation.to(torch.float32)
-    x = cx[:, None, None]
-    y = cy[None, :, None]
-    z = cz[None, None, :]
-    # sensor-frame direction d_s = R^T d, built from separable parts
-    dsx = x * R[0, 0] + y * R[1, 0] + z * R[2, 0]
-    dsy = x * R[0, 1] + y * R[1, 1] + z * R[2, 1]
-    dsz = x * R[0, 2] + y * R[1, 2] + z * R[2, 2]
-    rho2 = dsx * dsx + dsy * dsy
-    r_vox = _sqrt(rho2 + dsz * dsz)
-
+    x, y, z, dsx, dsy, dsz, rho2, r_vox = _sensor_direction(cx, cy, cz,
+                                                            rotation)
     az = atan2_poly(dsy, dsx)
     inv_rho = _f32(1.0, cx) / torch.maximum(_sqrt(rho2),
                                             _f32(1e-20, cx))
@@ -305,6 +310,104 @@ def sweep_merge_plain(value, weight, cx, cy, cz, rng_tab, endpoint,
         weight[sl] = ow.to(torch.int16)
 
 
+def z_rotation(cz: torch.Tensor) -> int:
+    """Array index of the lowest global z: ``relative_coords`` gives ``cz``
+    as ascending global z rotated by the window's ring offset."""
+    return int(torch.argmin(cz))
+
+
+def column_z_limits(cx, cy, cz, rng_tab, *, tau, resolution, channels,
+                    columns):
+    """Plain model of kernel K1's exact cull in the level sweep (R = I).
+
+    A voxel can pass the sweep's ``ok`` only where its beam range is finite,
+    ``r_vox <= range + tau`` and ``r_vox * col_res * colstep <= half_res``.
+    Per (x, y) column, with ``m`` the largest finite range of the column's
+    beam row, ``keep(dz) = r_vox <= m + tau and h_res <= half_res`` is a
+    necessary condition that holds on one run of ascending global z (each
+    float32 operation is monotone; see csrc/fusion.cu).  The run's ends are
+    found by binary search with the sweep's own float32 expressions.
+
+    Returns ``(skip, lo, hi, rot)``: ``skip`` (X, Y) bool, the row holds no
+    finite range; ``lo``, ``hi`` (X, Y) int64, the run ``[lo, hi)`` of
+    global z ranks (empty where ``skip``); ``rot``, the array index of global
+    rank 0 (rank ``j`` lies at array index ``(j + rot) % Z``)."""
+    X, Y, Z = len(cx), len(cy), len(cz)
+    x = cx[:, None]
+    y = cy[None, :]
+    rho2 = x * x + y * y
+    colf = (atan2_poly(y, x) + _f32(math.pi, cx)) \
+        * _f32(columns / (2 * math.pi), cx)
+    col = torch.remainder(torch.round(colf).to(torch.int32), columns)
+    col_res = torch.abs(colf - torch.round(colf))
+    rows = rng_tab.reshape(columns, channels)
+    rmax = torch.where(torch.isfinite(rows), rows,
+                       _f32(-math.inf, cx)).amax(dim=1)[col.to(torch.int64)]
+    skip = ~torch.isfinite(rmax)
+    lim = rmax + _f32(float(tau), cx)
+    colstep = _f32(2 * math.pi / columns, cx)
+    half_res = _f32(resolution * 0.5, cx)
+    rot = z_rotation(cz)
+    zg = torch.roll(cz, -rot)              # zg[j] = cz[(j + rot) % Z]
+
+    def keep(j):
+        dz = zg[j]
+        r_vox = _sqrt(rho2 + dz * dz)
+        return (r_vox <= lim) & (r_vox * col_res * colstep <= half_res)
+
+    def first(lo, hi, pred):
+        # first index in [lo, hi) where the monotone pred holds, else hi
+        lo = torch.full((X, Y), lo, dtype=torch.int64, device=cx.device)
+        hi = torch.full((X, Y), hi, dtype=torch.int64, device=cx.device)
+        for _ in range(Z.bit_length()):
+            mid = torch.div(lo + hi, 2, rounding_mode="floor")
+            live = lo < hi
+            p = pred(torch.clamp(mid, max=Z - 1)) & live
+            hi = torch.where(p, mid, hi)
+            lo = torch.where(live & ~p, mid + 1, lo)
+        return hi
+
+    mid = int((zg < 0).sum())              # ranks of dz < 0 come first
+    lo = first(0, mid, keep)
+    hi = first(mid, Z, lambda j: ~keep(j))
+    return skip, lo, hi, rot
+
+
+def fusion_work(cx, cy, cz, rng_tab, endpoint, scanner_mm, rotation, *,
+                level, tau, resolution, channels, columns, vfov_deg) -> dict:
+    """What one K1 call has to do on these inputs, for its bound: the
+    window's voxels and columns, ``fused_voxels`` (those whose ``ok``
+    holds: the only ones whose map entries are read and written),
+    ``swept_voxels`` (those that run the per-voxel math: inside
+    ``column_z_limits``' runs for the level sweep, all of them otherwise)
+    and ``ranged_voxels`` (those whose ``r_vox`` is within tau of the
+    table's largest finite range, a necessary condition of ``ok`` that
+    needs no beam: the others are rejected by their length alone)."""
+    X, Y, Z = len(cx), len(cy), len(cz)
+    kw = dict(tau=tau, resolution=resolution, channels=channels,
+              columns=columns, vfov_deg=vfov_deg)
+    finite = rng_tab[torch.isfinite(rng_tab)]
+    lim = (finite.max() if finite.numel() else _f32(-math.inf, cx)) \
+        + _f32(float(tau), cx)
+    step = max(1, _SLAB_VOXELS // (Y * Z))
+    fused = ranged = 0
+    for x0 in range(0, X, step):
+        sl = slice(x0, x0 + step)
+        fused += int((projective_sweep_coords(
+            cx[sl], cy, cz, rng_tab, endpoint, scanner_mm, rotation,
+            **kw)[1] != 0).sum())
+        ranged += int((_sensor_direction(cx[sl], cy, cz, rotation)[-1]
+                       <= lim).sum())
+    swept = X * Y * Z
+    if level:
+        _, lo, hi, _ = column_z_limits(cx, cy, cz, rng_tab, tau=tau,
+                                       resolution=resolution,
+                                       channels=channels, columns=columns)
+        swept = int((hi - lo).sum())
+    return dict(voxels=X * Y * Z, columns=X * Y, fused_voxels=fused,
+                swept_voxels=swept, ranged_voxels=ranged)
+
+
 def fusion_inputs(state: LocalMapState, points, points_mask, scanner_pos,
                   rotation, *, size, tau, resolution, channels, columns,
                   vfov_deg):
@@ -342,7 +445,7 @@ def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
 
     scanner_pos: (3,) int32 VOXEL coords; rotation: 3x3 f32 sensor->map
     (kept on the CPU).  ``level=True`` requires the identity rotation and
-    runs K1's level instantiation on the card (bit-identical to the
+    runs K1's level sweep on the card (bit-identical to the
     general one at R = I).  A CUDA state launches kernel K1; a CPU state
     runs its plain version."""
     from ..kernels.fusion import fusion_sweep_merge

@@ -55,7 +55,8 @@ def _sync(device: torch.device) -> None:
 class FeatsenseMapping:
     """TSDF back end with VGICP refinement (Mapping stage,
     mapping.cpp:39-152): consumes sensor-frame clouds (meters) and F-LOAM
-    poses; produces refined poses and the fused TSDF map on ``device``.
+    poses; produces refined poses and the fused TSDF map on ``device``
+    ("cuda", the default, or "cpu"; a CUDA device without a GPU raises).
 
     ``fusion``: "raymarch" (the default), "auto", "projective-level" or
     "projective" (pipeline/fusion_backend.py).  ``resume=True`` reopens the
@@ -66,7 +67,7 @@ class FeatsenseMapping:
     def __init__(self, params: Params, map_path: str | Path | None = None,
                  capacity: int = 32768, max_range_mm: int = 50000,
                  fusion: str = "raymarch", resume: bool = False,
-                 device="cpu", in_memory_map: bool = False):
+                 device="cuda", in_memory_map: bool = False):
         self.params = params
         self.device = resolve_device(device)
         self.capacity = int(capacity)
@@ -228,15 +229,15 @@ class FeatsenseMapping:
 
 class FeatsenseApp:
     """Full featsense loop: features -> odometry -> VGICP + TSDF mapping,
-    all on ``device``.  ``fusion`` and ``in_memory_map`` go to
-    ``FeatsenseMapping``."""
+    all on ``device`` ("cuda", the default, or "cpu").  ``fusion`` and
+    ``in_memory_map`` go to ``FeatsenseMapping``."""
 
     def __init__(self, params: Params, map_path: str | Path | None = None,
                  feature_params: FeatureParams | None = None,
                  edge_capacity: int = 2048, surf_capacity: int = 4096,
                  cloud_capacity: int = 32768, profile: bool = False,
                  odom_kwargs: dict | None = None, fusion: str = "raymarch",
-                 resume: bool = False, device="cpu",
+                 resume: bool = False, device="cuda",
                  in_memory_map: bool = False):
         self.params = params
         self.device = resolve_device(device)

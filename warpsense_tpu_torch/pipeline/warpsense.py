@@ -56,8 +56,8 @@ def _mat_from_quat(q: np.ndarray) -> np.ndarray:
 class WarpsenseApp:
     """Single-GPU warpsense loop fed by ``cloud_callback``/``imu_callback``.
 
-    ``device``: "cpu" or "cuda" (a CUDA device without a GPU raises).
-    ``map_path``: HDF5 output (default params.map.h5_path());
+    ``device``: "cuda" (the default) or "cpu"; a CUDA device without a
+    GPU raises.  ``map_path``: HDF5 output (default params.map.h5_path());
     ``in_memory_map=True`` keeps the global map in memory instead (no
     h5py needed, nothing persisted).  ``capacity``: static preprocessed-
     cloud capacity.  ``max_range_mm``: the ray march's range budget
@@ -75,7 +75,7 @@ class WarpsenseApp:
                  resume: bool = False, exact_fields: bool = False,
                  force_odd: bool = True,
                  window_size: tuple[int, int, int] | None = None,
-                 sync_shift: bool = False, device="cpu",
+                 sync_shift: bool = False, device="cuda",
                  in_memory_map: bool = False):
         if params.registration.mode not in ("fast", "parity"):
             raise ValueError(
