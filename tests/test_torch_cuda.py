@@ -111,16 +111,29 @@ def test_fusion_level_kernel_after_shift_and_on_empty_columns(cuda, cloud):
     assert int((st_k.weight != 0).sum()) > 1000
 
 
-@pytest.mark.parametrize("size", [(37, 29, 23), (64, 40, 33)])
+# degenerate extents (1 and 2, where x-1 == x+1), Y*Z a multiple of 8,
+# Y*Z above one tile with Z at the default extent, odd windows, and planes
+# that start `offset` int16 past a 16-byte boundary (a window cut from a
+# larger one starts so)
+@pytest.mark.parametrize("size,offset", [
+    ((37, 29, 23), 0), ((64, 40, 33), 0), ((1, 5, 7), 0), ((2, 3, 1), 0),
+    ((5, 7, 3), 0), ((9, 16, 32), 0), ((3, 40, 391), 0), ((5, 13, 23), 1),
+    ((5, 13, 23), 3), ((5, 13, 23), 7)])
 @pytest.mark.parametrize("exact", [False, True])
-def test_fields_kernel_matches_plain(cuda, size, exact):
+def test_fields_kernel_matches_plain(cuda, size, offset, exact):
     rng = np.random.default_rng(sum(size))
     v = rng.integers(-TAU, TAU + 1, size).astype(np.int16)
     w = ((rng.random(size) < 0.7) * rng.integers(1, 64, size)).astype(
         np.int16)
+    n = v.size
+    flat_v = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
+    flat_w = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
+    flat_v[offset:offset + n] = torch.as_tensor(v.reshape(-1))
+    flat_w[offset:offset + n] = torch.as_tensor(w.reshape(-1))
     st = create_state(size, TAU, 0, device=cuda, force_odd=False)
-    st.value.copy_(torch.as_tensor(v))
-    st.weight.copy_(torch.as_tensor(w))
+    st = st._replace(value=flat_v[offset:offset + n].view(size),
+                     weight=flat_w[offset:offset + n].view(size))
+    assert st.value.data_ptr() % 16 == 2 * offset
     before = fields_packed.launches
     got = fields_packed(st, tau=TAU, exact=exact)
     assert fields_packed.launches == before + 1
@@ -138,6 +151,20 @@ def test_wrappers_reject_bad_inputs(cuda):
     strided = st._replace(value=st.value.transpose(0, 2))
     with pytest.raises(ValueError):
         fields_packed(strided, tau=TAU)
+    # planes at different offsets from a 16-byte boundary: the kernel
+    # stages value and weight by the same 16-byte copies
+    n = st.value.numel()
+    flat_v = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
+    flat_w = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
+    for ov, ow in ((1, 0), (0, 3), (2, 5)):
+        skewed = st._replace(value=flat_v[ov:ov + n].view(st.value.shape),
+                             weight=flat_w[ow:ow + n].view(st.value.shape))
+        with pytest.raises(ValueError, match="16-byte"):
+            fields_packed(skewed, tau=TAU)
+    tall = create_state((1, 1, 200_000), TAU, 0, device=cuda,
+                        force_odd=False)
+    with pytest.raises(ValueError, match="z extent"):
+        fields_packed(tall, tau=TAU)
 
 
 def test_app_on_cuda_launches_kernels_and_tracks(cuda):

@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Time kernels K1 and K2 of two or more checkouts of warpsense_tpu_torch on
+one GPU.
+
+    python3 tools/kernel_ab.py [--kernels k1,k2] ROOT [ROOT ...]
+
+Each ROOT is a directory holding a ``warpsense_tpu_torch`` package (a
+checkout of another commit, unpacked with ``git archive``, or ``.``).  Every
+ROOT runs in a process of its own, in the order given (give them as A B B A
+to see the drift between turns), and prints one JSON line.  The cases, the
+checks and the timing are chip_smoke.py's (this checkout's):
+
+* k1: K1's level and 4-degree tilt times at the full 625 x 625 x 235
+  window and at configs/default.yaml's 625 x 625 x 391; chip_smoke's K1
+  checks fuse the map, checking the ROOT's kernel against its plain version
+  on the way, then ``time_fusion`` times each case from a copy of that map;
+* k2: K2's packed and exact times at 625 x 625 x 235 on chip_smoke's seeded
+  full-range window, after ``check_fields`` has held the ROOT's kernel to
+  its plain versions on it: one call and per launch (``time_fields``),
+  with the copy yardstick beside them.
+
+The first line is the card's name and power limit as nvidia-smi gives them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+KERNELS = ("k1", "k2")
+
+
+def time_root(root: str, kernels) -> dict:
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs           # this checkout's, whatever ROOT holds
+    # the package comes from ROOT: chip_smoke imports it inside its functions
+    sys.path[0] = str(Path(root).resolve())
+    import torch
+    device = torch.device("cuda", 0)
+    out = {"root": root}
+    if "k1" in kernels:
+        for name, cfg in (("full", cs.FULL),
+                          ("default", cs.default_fusion_cfg())):
+            state, _ = cs.check_fusion(torch, cfg, device)
+            times = cs.time_fusion(torch, cfg, state, ("level", "tilt"),
+                                   bounds=False)
+            for case, t in times.items():
+                out[f"{name}_{case}_ms"] = t["ms"]
+            del state
+            torch.cuda.empty_cache()
+    if "k2" in kernels:
+        state = cs.seeded_fields_state(torch, cs.FULL["size"], device)
+        cs.check_fields(torch, state, cs.FULL["tau"], "seeded_full")
+        for name, t in cs.time_fields(torch, cs.FULL, state).items():
+            for key in ("ms", "per_launch_ms", "copy_ms"):
+                out[f"k2_{name}_{key}"] = t[key]
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of k1,k2")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args(argv[1:])
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(KERNELS):
+        ap.error(f"--kernels takes a subset of {','.join(KERNELS)}")
+    if args.one:
+        print(json.dumps(time_root(args.roots[0], kernels)), flush=True)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    for root in args.roots:
+        subprocess.run([sys.executable, __file__, "--one",
+                        "--kernels", args.kernels, root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
