@@ -23,18 +23,24 @@ Phases (each raises on failure; nothing falls back to the CPU):
    required;
 5. kernel and plain times (CUDA events around one call, median of 7; K2
    also per launch in runs of K2_LAUNCHES back-to-back launches), K1
-   level and tilt and K2 at 625 x 625 x 235, K1 level at the default
-   shapes, each beside its bound: the least time an H100 SXM could take
-   for the same work
+   level and tilt (the general sweep) and K2 at 625 x 625 x 235, K1 level
+   and tilt at the default shapes, each beside its bound: the least time
+   an H100 SXM could take for the same work
    (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, whichever is
-   longer; K1's bytes and operations counted from this run's inputs; K1
-   also beside the floor of its design's own traffic, sweep_floor_ms; K2
-   also beside a device-to-device copy of as many bytes, copy_ms);
+   longer; K1's bytes and operations counted from this run's inputs, the
+   tilt's also under the count without its early-outs; K1 also beside the
+   floor of its design's own traffic, sweep_floor_ms; K2 also beside a
+   device-to-device copy of as many bytes, copy_ms);
 6. WarpsenseApp(device="cuda") in fast mode at the application config:
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
 7. torch.profiler over 4 more app scans: device busy share and top
    kernels (trace in chiprun_out/app_trace.json);
+7b. the tilted walk (TILT_APP): the same app on 18 scans that pitch and
+   roll past the 2 degree budget from the seventh on, so fusion bins with
+   the sensor attitude; finite poses, a map shift, ATE below twice the
+   JAX app's on these scans, K1's general sweep launched on at least
+   TILT_APP["min_general_scans"] scans;
 8. WarpsenseApp(device="cuda") in parity mode at configs/default.yaml
    (625 x 625 x 391): the same 10 scans, update_distance 0, a shift check
    every scan; each scan's position within PARITY_POSE_BOUND_MM of the
@@ -44,11 +50,13 @@ Phases (each raises on failure; nothing falls back to the CPU):
    tensors at a 161 x 161 x 61 window (0 value/weight mismatches), then
    its time at the default window;
 10. FeatsenseApp(device="cuda", fusion="auto") at configs/default.yaml on
-   10 scans with translation and yaw: finite poses, final-pose error below
+   10 scans with translation and yaw, twice: finite poses, every pose of
+   the second run equal to the first's bit for bit, final-pose error below
    FEATSENSE_BOUND_M, K1 launched; then 3 scans with fusion="raymarch".
 
 Every phase prints its seconds.  Each path's kernel launches are counted
-from 0 just before it runs.
+from 0 just before it runs; K1's also by sweep (general_launches_by_path:
+the calls that ran the general sweep).
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -70,13 +78,27 @@ ROOT = Path(__file__).resolve().parent
 
 FULL = dict(size=(625, 625, 235), tau=600, res=64, n=32766,
             channels=128, columns=1024, vfov_deg=45.0, max_weight=32 * 64)
-APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
-           channels=128, columns=1024, capacity=32766, step_m=0.1,
-           shift_m=0.35, noise=0.002)
 # ATE (translation RMSE, no alignment) of the 10-scan walk.  The JAX app on
 # the same scans (CPU) reaches the value recorded in CHANGES.md; the bound
 # leaves room for float-order differences in registration.
 ATE_BOUND_M = 0.02
+APP = dict(size=(625, 625, 235), res=64, scans=10, warmup=2,
+           channels=128, columns=1024, capacity=32766, step_m=0.1,
+           shift_m=0.35, noise=0.002, ate_bound_m=ATE_BOUND_M)
+# the tilted walk: APP's settings on 18 scans of io/synthetic
+# .rich_trajectory (0.08 m steps, 0.05 rad of yaw a scan, +-8 deg of pitch
+# from scan 6 and +-5 deg of roll from scan 12), so scans 6-17 tilt past
+# the 2 degree budget and fuse through K1's general sweep.  Fast mode fuses
+# a scan only when the pose moved since the last fusion or the window
+# shifted, which comes to every other scan on this walk: 12 tilted scans
+# give at least 6 general fusions.  The JAX fast app on the CPU, fusion
+# pinned to "projective-level", at a 321 x 221 x 111 window that holds the
+# room, reaches TILT_JAX_ATE_M on these scans
+# (tests/_jax_tilt_reference.py); the bound is twice that.
+TILT_JAX_ATE_M = 0.00935352837387806
+TILT_APP = dict(APP, scans=18, step_m=0.08, yaw_rate=0.05, pitch_deg=8.0,
+                roll_deg=5.0, ate_bound_m=2 * TILT_JAX_ATE_M,
+                min_general_scans=6)
 TILT_DEG = 4.0
 REPS = 7
 # the K1 ring-offset case moves the window's ring by these voxels per axis
@@ -85,26 +107,38 @@ RING_SHIFT = (211, 97, 58)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # float32 operations of K1 (csrc/fusion.cu), counted from its source: each
-# arithmetic op, sqrt, division, comparison, min/max, rint/floor/trunc and
-# int<->float conversion counts one.  Per beam (prepare_kernel): 3
-# subtractions and the running maximum of finite ranges.  Level sweep: per
-# (x, y) column its terms (rho2, atan2_poly, inv_rho, colf, col, col_res)
-# and m + tau; per voxel inside the cull's run its acceptance tests (r_vox,
-# ring, v_res, h_res, the range test).  General sweep: per voxel within
-# range of the table (fusion_work's ranged_voxels) the rotation, the
-# column terms and the same tests; per voxel beyond it only the rotation,
-# r_vox and the range test against the table's largest range.  Per voxel
-# that passes the tests, its value and weight.  These count the work of
-# this implementation on this run's data (the voxels its culls leave), not
-# the least work the function could need, so a share of the bound is an
-# upper estimate.  The cull's searches are the kernel's own overhead and
-# are not counted.
+# arithmetic op, sqrt, division or reciprocal, comparison, min/max,
+# rint/floor/trunc and int<->float conversion counts one.  Per beam
+# (prepare_kernel): 3 subtractions and the running maximum of finite
+# ranges.  Level sweep: per (x, y) column its terms (rho2, atan2_poly,
+# inv_rho, colf, col, col_res) and m + tau; per voxel inside the cull's run
+# its acceptance tests (r_vox, ring, v_res, h_res, the range test).
+# General sweep: per (x, y) column its halves of the rotation (6 products,
+# 3 sums); per z its products with the rotation's last row; per azimuth
+# column of the table the maximum; per voxel the tests of each stage it
+# reaches, in general_rejects' order (fusion_work's left_at): range (the
+# rotation's 3 sums, rho2, r_vox, the comparison: 10), ring (sqrt, max,
+# reciprocal, banded_atan, ringf and its clip, rint, conversion, 2
+# comparisons: 26), vertical (delta_z, v_res, max, comparison: 9),
+# horizontal (atan2_poly, colf, col_res, h_res, comparison: 34) and beam
+# (conversion, isfinite, range + tau, comparison: 4).  Per voxel that
+# passes the tests, its value and weight.  These count the work of this
+# implementation on this run's data (the voxels its culls and early-outs
+# leave), not the least work the function could need, so a share of the
+# bound is an upper estimate.  The cull's searches are the kernel's own
+# overhead and are not counted.
 K1_OPS_PER_BEAM = 5
 K1_OPS_PER_COLUMN_LEVEL = 39
 K1_OPS_PER_VOXEL_LEVEL = 39
-K1_OPS_PER_VOXEL_GENERAL = 92
-K1_OPS_PER_VOXEL_OUT_OF_RANGE = 22
+K1_OPS_PER_COLUMN_GENERAL = 9
+K1_OPS_PER_Z_GENERAL = 3
+K1_OPS_PER_VOXEL_GENERAL_STAGES = (10, 26, 9, 34, 4)
 K1_OPS_PER_FUSED_VOXEL = 21
+# For comparison, the general sweep's count without early-outs or the
+# hoisted rotation: every voxel within range of the table (ranged_voxels)
+# rotates and runs all its tests, every other voxel rotates and takes its
+# length (the bound's count before the early-outs)
+K1_OPS_GENERAL_NO_EARLY_OUT = (92, 22)
 # parity mode at the shipped default config, on APP's scans.  Cut: 10
 # scans, update_distance 0 (fuse every scan), shift 0 (the window-shift
 # check runs every scan: the reference's GN creeps ~1.5 mm a scan here, so
@@ -427,21 +461,33 @@ def fusion_cost(work: dict, *, channels: int, columns: int, X: int, Y: int,
     ``bytes``, what the function must move (the int16 value and weight of
     each fused voxel read and written, the float4 beam table and the three
     coordinate vectors read once), ``ops`` (K1_OPS_*), and ``sweep_bytes``,
-    what this design moves: it loads the value and weight of every voxel
-    it sweeps ahead of that voxel's tests."""
+    what this design moves: the level sweep loads the value and weight of
+    every voxel it sweeps, the general sweep those of the voxels that pass
+    its beam-free tests.  For the general sweep also ``ops_no_early_out``,
+    the count without early-outs (K1_OPS_GENERAL_NO_EARLY_OUT)."""
     table = 16 * channels * columns + 4 * (X + Y + Z)
-    ops = (K1_OPS_PER_BEAM * channels * columns
-           + K1_OPS_PER_FUSED_VOXEL * work["fused_voxels"])
+    fused = work["fused_voxels"]
+    base = K1_OPS_PER_BEAM * channels * columns \
+        + K1_OPS_PER_FUSED_VOXEL * fused
+    out = dict(bytes=8 * fused + table)
     if level:
-        ops += (K1_OPS_PER_COLUMN_LEVEL * work["columns"]
-                + K1_OPS_PER_VOXEL_LEVEL * work["swept_voxels"])
-    else:
-        ops += (K1_OPS_PER_VOXEL_GENERAL * work["ranged_voxels"]
-                + K1_OPS_PER_VOXEL_OUT_OF_RANGE
-                * (work["voxels"] - work["ranged_voxels"]))
-    return dict(bytes=8 * work["fused_voxels"] + table, ops=ops,
-                sweep_bytes=4 * (work["swept_voxels"] + work["fused_voxels"])
-                + table)
+        out.update(ops=base + K1_OPS_PER_COLUMN_LEVEL * work["columns"]
+                   + K1_OPS_PER_VOXEL_LEVEL * work["swept_voxels"],
+                   sweep_bytes=4 * (work["swept_voxels"] + fused) + table)
+        return out
+    reach, ops = work["voxels"], base \
+        + K1_OPS_PER_COLUMN_GENERAL * work["columns"] \
+        + K1_OPS_PER_Z_GENERAL * Z + columns
+    for stage, per_voxel in zip(list(work["left_at"])[1:],
+                                K1_OPS_PER_VOXEL_GENERAL_STAGES):
+        ops += per_voxel * reach             # the voxels reaching the stage
+        loaded = reach                       # the beam stage's: map loaded
+        reach -= work["left_at"][stage]
+    full, out_of_range = K1_OPS_GENERAL_NO_EARLY_OUT
+    out.update(ops=ops, sweep_bytes=4 * (loaded + fused) + table,
+               ops_no_early_out=base + full * work["ranged_voxels"]
+               + out_of_range * (work["voxels"] - work["ranged_voxels"]))
+    return out
 
 
 def time_fusion(torch, cfg, state, names, bounds=True):
@@ -493,6 +539,10 @@ def time_fusion(torch, cfg, state, names, bounds=True):
                 **bound(cost["bytes"], cost["ops"], k_ms),
                 sweep_bytes=cost["sweep_bytes"], sweep_floor_ms=sweep_ms,
                 work=counts)
+            if "ops_no_early_out" in cost:
+                # the bound under the count without early-outs, beside it
+                out[c["name"]]["bound_ms_no_early_out"] = bound(
+                    cost["bytes"], cost["ops_no_early_out"], k_ms)["bound_ms"]
         log(f"[time K1 {c['name']}]", json.dumps(out[c["name"]]))
     return out
 
@@ -556,9 +606,9 @@ def time_fields_plain(torch, cfg, state, times):
 
 
 # ----------------------------------------------------------------- phase 6
-def app_params(cfg):
-    from warpsense_tpu_torch.core.config import Params
-    return Params.from_dict({
+def app_config(cfg) -> dict:
+    """The fast-mode app's configuration as a dict (``Params.from_dict``)."""
+    return {
         "map": {"max_distance": 0.6, "resolution": cfg["res"],
                 "max_weight": 32, "shift": cfg["shift_m"],
                 "update_distance": 0.0},
@@ -566,17 +616,31 @@ def app_params(cfg):
                          "it_weight_gradient": 0.1, "mode": "fast"},
         "lidar": {"channels": cfg["channels"],
                   "hresolution": cfg["columns"]},
-    })
+    }
+
+
+def app_params(cfg):
+    from warpsense_tpu_torch.core.config import Params
+    return Params.from_dict(app_config(cfg))
 
 
 def app_scans(cfg):
+    """(ground truth, scans): the walk, or with ``pitch_deg`` in ``cfg`` the
+    tilted walk of ``rich_trajectory``."""
     import numpy as np
 
     from warpsense_tpu_torch.io.synthetic import (BoxWorld, render_scan,
+                                                  rich_trajectory,
                                                   walk_trajectory)
     world = BoxWorld.default()
     rng = np.random.default_rng(4)
-    gt = walk_trajectory(cfg["scans"], step_m=cfg["step_m"])
+    if "pitch_deg" in cfg:
+        gt = rich_trajectory(cfg["scans"], step_m=cfg["step_m"],
+                             yaw_rate=cfg["yaw_rate"],
+                             pitch_deg=cfg["pitch_deg"],
+                             roll_deg=cfg["roll_deg"])
+    else:
+        gt = walk_trajectory(cfg["scans"], step_m=cfg["step_m"])
     scans = [render_scan(world, p, channels=cfg["channels"],
                          columns=cfg["columns"], noise_std=cfg["noise"],
                          rng=rng) for p in gt]
@@ -635,15 +699,24 @@ def run_app(torch, cfg, device):
                window_pos_end=shifted.tolist(),
                ate_m=ate_m(poses, gt), launches=launches,
                finite=bool(np.all(np.isfinite(np.stack(poses)))))
+    if "pitch_deg" in cfg:
+        from warpsense_tpu_torch.pipeline.fusion_backend import \
+            sensor_tilt_deg
+        rep["tilt_deg"] = [sensor_tilt_deg(p) for p in poses]
     log("[app]", json.dumps(rep))
     if not rep["finite"]:
         raise AssertionError("non-finite pose")
     if np.array_equal(pos0, shifted):
         raise AssertionError("no map shift ran")
-    if not rep["ate_m"] < ATE_BOUND_M:
-        raise AssertionError(f"ATE {rep['ate_m']:.4f} m >= {ATE_BOUND_M} m")
-    if device.type == "cuda" and min(launches.values()) == 0:
+    if not rep["ate_m"] < cfg["ate_bound_m"]:
+        raise AssertionError(f"ATE {rep['ate_m']:.4f} m >= "
+                             f"{cfg['ate_bound_m']} m")
+    if device.type == "cuda" and min(launches["fusion"],
+                                     launches["fields"]) == 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["fusion_general"] < cfg.get("min_general_scans", 0):
+        raise AssertionError(f"K1's general sweep ran on fewer than "
+                             f"{cfg['min_general_scans']} scans: {launches}")
     return rep
 
 
@@ -699,13 +772,17 @@ def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     fusion_sweep_merge.launches = 0
+    fusion_sweep_merge.general_launches = 0
     fields_packed.launches = 0
 
 
 def read_launches() -> dict:
+    """K1's launches ("fusion", of which "fusion_general" ran the general
+    sweep) and K2's ("fields")."""
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     return {"fusion": fusion_sweep_merge.launches,
+            "fusion_general": fusion_sweep_merge.general_launches,
             "fields": fields_packed.launches}
 
 
@@ -856,15 +933,11 @@ def featsense_scans(cfg):
     return truth, scans
 
 
-def run_featsense_app(torch, cfg, device):
-    """FeatsenseApp at the default config with fusion="auto" (K1), then a
-    few scans with the default fusion="raymarch"."""
-    import numpy as np
-
+def featsense_auto_run(torch, cfg, params, scans, device):
+    """One FeatsenseApp run with fusion="auto" (K1) over ``scans``: (poses,
+    the report's fields)."""
     from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
     from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
-    truth, scans = featsense_scans(cfg)
-    params = default_params()
     app = FeatsenseApp(params, fusion="auto", device=device,
                        in_memory_map=True, profile=True)
     ev = RuntimeEvaluator.get_instance()
@@ -878,18 +951,37 @@ def run_featsense_app(torch, cfg, device):
         poses.append(app.process_scan(scan, 0.1 * i))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    launches = read_launches()
-    rows = ev.to_rows()
     rep = dict(window=list(app.mapping.local_map.size), scans=len(scans),
                scans_per_s=(len(scans) - cfg["warmup"]) / wall,
-               stage_avg_ms={r["task"]: r["avg"] / 1000.0 for r in rows},
-               final_error_m=float(np.linalg.norm(poses[-1][:3, 3]
-                                                  - truth[-1][:3, 3])),
+               stage_avg_ms={r["task"]: r["avg"] / 1000.0
+                             for r in ev.to_rows()},
                refined_poses=len(app.mapping.gicp_path),
-               launches=launches,
-               finite=bool(np.all(np.isfinite(np.stack(poses)))))
+               launches=read_launches())
     app.terminate()
-    del app
+    return poses, rep
+
+
+def run_featsense_app(torch, cfg, device):
+    """FeatsenseApp at the default config with fusion="auto" (K1), twice on
+    the same scans (the card's runs must repeat every pose bit for bit),
+    then a few scans with the default fusion="raymarch"."""
+    import numpy as np
+
+    from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
+    truth, scans = featsense_scans(cfg)
+    params = default_params()
+    poses, rep = featsense_auto_run(torch, cfg, params, scans, device)
+    again, rep2 = featsense_auto_run(torch, cfg, params, scans, device)
+    launches = rep["launches"]
+    rep.update(
+        final_error_m=float(np.linalg.norm(poses[-1][:3, 3]
+                                           - truth[-1][:3, 3])),
+        finite=bool(np.all(np.isfinite(np.stack(poses)))),
+        repeat=dict(scans_per_s=rep2["scans_per_s"],
+                    identical_scans=sum(np.array_equal(a, b)
+                                        for a, b in zip(poses, again)),
+                    max_abs_diff=float(np.max(np.abs(np.stack(poses)
+                                                     - np.stack(again))))))
     rm = FeatsenseApp(params, device=device, in_memory_map=True)
     if rm.mapping.fusion != "raymarch":
         raise AssertionError("featsense's default fusion is not raymarch")
@@ -905,6 +997,9 @@ def run_featsense_app(torch, cfg, device):
     log("[featsense_app]", json.dumps(rep))
     if not (rep["finite"] and rep["raymarch"]["finite"]):
         raise AssertionError("non-finite featsense pose")
+    if rep["repeat"]["identical_scans"] != len(scans):
+        raise AssertionError(f"featsense did not repeat its poses on the "
+                             f"card: {rep['repeat']}")
     if not rep["final_error_m"] < FEATSENSE_BOUND_M:
         raise AssertionError(f"featsense final error {rep['final_error_m']:.4f}"
                              f" m >= {FEATSENSE_BOUND_M} m")
@@ -955,11 +1050,13 @@ def main() -> int:
     state, k1_default = phase("fusion_check_default", check_fusion, torch,
                               default_cfg, device)
     k1_times_default = phase("fusion_times_default", time_fusion, torch,
-                             default_cfg, state, ("level",))
+                             default_cfg, state, ("level", "tilt"))
     del state
     torch.cuda.empty_cache()
     app = phase("fast_app", run_app, torch, APP, device)
     phase("profile", profile_app, torch, APP, device)
+    torch.cuda.empty_cache()
+    tilt = phase("tilt_app", run_app, torch, TILT_APP, device)
     torch.cuda.empty_cache()
     parity = phase("parity_app", run_parity_app, torch, PARITY, device)
     torch.cuda.empty_cache()
@@ -967,18 +1064,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     feats = phase("featsense_app", run_featsense_app, torch, FEATSENSE,
                   device)
-    paths = {"fast_app": app["launches"], "parity_app": parity["launches"],
+    paths = {"fast_app": app["launches"], "tilt_app": tilt["launches"],
+             "parity_app": parity["launches"],
              "featsense_app": feats["launches"]}
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
                    "share_of_bound", "library_ms")
 
-    def entry(t):
-        return {k: t[k] for k in timing_keys}
+    def entry(t, *extra):
+        return {k: t[k] for k in timing_keys + extra}
 
     k1_cases = {"level_full": entry(k1_times["level"]),
-                "tilt_full": entry(k1_times["tilt"]),
-                "level_default": entry(k1_times_default["level"])}
+                "tilt_full": entry(k1_times["tilt"], "bound_ms_no_early_out"),
+                "level_default": entry(k1_times_default["level"]),
+                "tilt_default": entry(k1_times_default["tilt"],
+                                      "bound_ms_no_early_out")}
     k2_cases = {f"{name}_full": dict(
         entry(k2_times[name]), **{k: k2_times[name][k] for k in (
             "per_launch_ms", "copy_ms", "share_of_copy")})
@@ -990,6 +1090,8 @@ def main() -> int:
          "also_replaces": "warpsense_tpu/kernels/tsdf_pallas.py:82",
          "launches": app["launches"]["fusion"],
          "launches_by_path": {k: v["fusion"] for k, v in paths.items()},
+         "general_launches_by_path": {k: v["fusion_general"]
+                                      for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k1 + k1_default),
          **k1_cases["level_full"], "cases": k1_cases},
         {"name": "fields_K2", "route": "cuda",

@@ -111,6 +111,113 @@ def test_fusion_level_kernel_after_shift_and_on_empty_columns(cuda, cloud):
     assert int((st_k.weight != 0).sum()) > 1000
 
 
+def _oblique(deg):
+    """A tilt of ``deg`` about an oblique horizontal axis, with some yaw."""
+    a = math.radians(deg)
+    k = torch.tensor([[0.0, 0.0, 0.8], [0.0, 0.0, -0.6], [-0.8, 0.6, 0.0]],
+                     dtype=torch.float64)
+    tilt = torch.eye(3, dtype=torch.float64) + math.sin(a) * k \
+        + (1 - math.cos(a)) * k @ k
+    c, s = math.cos(0.3), math.sin(0.3)
+    yaw = torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]],
+                       dtype=torch.float64)
+    return (yaw @ tilt).to(torch.float32)
+
+
+@pytest.mark.parametrize("deg", [4.0, 12.0, 30.0])
+@pytest.mark.parametrize("cloud", ["room", "wedge"])
+def test_fusion_general_kernel_matches_plain(cuda, deg, cloud):
+    """K1's general sweep (its early-outs, the hoisted rotation, the column
+    without a modulo) on a window whose ring offset is nonzero on all
+    three axes, the room cloud or a 60-degree wedge of it: equal to the
+    plain version, and counted as a general launch."""
+    size = (96, 80, 45)
+    kw = dict(tau=TAU, resolution=RES, channels=128, columns=1024,
+              vfov_deg=45.0)
+    pts = torch.as_tensor(box_room_cloud(20000, 2000, 1000), device=cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    if cloud == "wedge":
+        mask = (pts[:, 0] > 0) & (pts[:, 1].abs() * 100 < 58 * pts[:, 0])
+    ring = dict(pos=torch.tensor([3, -2, 1], dtype=torch.int32, device=cuda),
+                offset=torch.tensor([5, 71, 9], dtype=torch.int32,
+                                    device=cuda))
+    st_k = create_state(size, TAU, 0, device=cuda,
+                        force_odd=False)._replace(**ring)
+    st_p = clone_state(st_k)
+    R = _oblique(deg)
+    for spos in ((3, -2, 1), (40, -30, 15)):
+        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            st_k, pts, mask, spos, R, size=size, **kw)
+        before = fusion_sweep_merge.general_launches
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, R, max_weight=2048, level=False,
+                           **kw)
+        assert fusion_sweep_merge.general_launches == before + 1
+        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
+                          endpoint, smm, R, max_weight=2048, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k.value, st_p.value)
+        assert torch.equal(st_k.weight, st_p.weight)
+    assert int((st_k.weight != 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("channels", [400, 2000])
+def test_fusion_level_past_the_default_shared_memory(cuda, channels):
+    """A level fusion whose beam rows pass 48 KB: at 400 channels the level
+    sweep opts into more shared memory; at 2,000, past what a block can
+    opt into (1,816 on an H100), the wrapper runs the general sweep at the
+    identity.  Both equal the plain version, and "auto" fusion runs."""
+    from warpsense_tpu_torch.kernels.fusion import max_level_channels
+    size = (64, 56, 30)
+    kw = dict(tau=TAU, resolution=RES, channels=channels, columns=64,
+              vfov_deg=45.0)
+    pts = torch.as_tensor(box_room_cloud(40000, 1500, 800), device=cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    st_k = create_state(size, TAU, 0, device=cuda, force_odd=False)
+    st_p = clone_state(st_k)
+    eye = torch.eye(3)
+    general = channels > max_level_channels()
+    assert general == (channels == 2000)
+    for spos in ((0, 0, 0), (5, -3, 2)):
+        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            st_k, pts, mask, spos, eye, size=size, **kw)
+        before = fusion_sweep_merge.general_launches
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, eye, max_weight=2048, level=True,
+                           **kw)
+        assert fusion_sweep_merge.general_launches == before + int(general)
+        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
+                          endpoint, smm, eye, max_weight=2048, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k.value, st_p.value)
+        assert torch.equal(st_k.weight, st_p.weight)
+    assert int((st_k.weight != 0).sum()) > 1000
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": RES, "max_weight": 10},
+        "lidar": {"channels": channels, "hresolution": 64}})
+    fuse_cloud(st_k, pts, mask, np.eye(4), params=params, size=size,
+               fusion="auto")
+    torch.cuda.synchronize()
+
+
+def test_segment_sum_is_deterministic_on_the_card(cuda):
+    """Featsense's voxel sums on the card: a fixed order, so two calls give
+    the same bits; within the summation bound of the CPU's index_add_."""
+    from warpsense_tpu_torch.ops.segment import segment_sum
+    rng = np.random.default_rng(3)
+    gid = torch.as_tensor(np.sort(rng.integers(0, 3000, 200_000)))
+    vals = torch.as_tensor(rng.normal(size=(200_000, 13)).astype(np.float32))
+    want = segment_sum(vals, gid, 3000)                 # CPU: index_add_
+    a = segment_sum(vals.to(cuda), gid.to(cuda), 3000)
+    b = segment_sum(vals.to(cuda), gid.to(cuda), 3000)
+    assert torch.equal(a, b)
+    n = torch.bincount(gid, minlength=3000).to(torch.float32)[:, None]
+    bound = 2 * n * 2.0 ** -24 * segment_sum(vals.abs(), gid, 3000)
+    assert bool(((a.cpu() - want).abs() <= bound).all())
+
+
 # degenerate extents (1 and 2, where x-1 == x+1), Y*Z a multiple of 8,
 # Y*Z above one tile with Z at the default extent, odd windows, and planes
 # that start `offset` int16 past a 16-byte boundary (a window cut from a

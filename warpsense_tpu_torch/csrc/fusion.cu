@@ -23,17 +23,18 @@
 // ~2.4 G float32 ops there, ~36 us at the card's 67 TFLOP/s.  So the
 // function is bound by its operations, not by its bytes.
 //
-// The design's own traffic is larger than the function's: a sweep loads
-// the value and weight of every voxel it visits ahead of that voxel's
-// tests (which hides the load's latency behind the math), 4 B each.  The
-// level sweep visits the ~58.2M voxels inside the cull's runs at that
-// window, ~233 MB or ~70 us at 3.35 TB/s, above the operation bound; the
-// general sweep visits all 91.8M, ~367 MB or ~110 us.  chip_smoke.py
-// reports this floor beside the bound (sweep_floor_ms).
+// The design's own traffic is larger than the function's: the level sweep
+// loads the value and weight of every voxel it visits ahead of that
+// voxel's tests (which hides the load's latency behind the math), 4 B
+// each: the ~58.2M voxels inside the cull's runs at that window, ~233 MB
+// or ~70 us at 3.35 TB/s, above the operation bound.  The general sweep
+// loads them only for the voxels that pass its beam-free tests (below).
+// chip_smoke.py reports this floor beside the bound (sweep_floor_ms).
 //
-// A call is two launches: prepare_kernel turns the beam table into float4
-// rows (bx, by, bz, range) and each azimuth column's largest finite range;
-// then level_kernel or general_kernel sweeps and merges.
+// A call is two launches (three for the general sweep): prepare_kernel
+// turns the beam table into float4 rows (bx, by, bz, range) and each
+// azimuth column's largest finite range; then level_kernel, or
+// general_setup_kernel and general_kernel, sweep and merge.
 //
 // Design (level_kernel).  A warp takes a tile of kTile (x, y) columns: x is
 // blockIdx.y and y comes from blockIdx.x and the warp index, so no voxel
@@ -68,9 +69,68 @@
 // index of the lowest z, is found from cz itself; a run of global z is up
 // to two runs of array z.
 //
-// Design (general_kernel, any R): one warp per (x, y) column, the lanes
-// walking z in array order; every voxel rotates its direction and gathers
-// its beam through L1/L2.
+// Design (general_kernel, any R).  Under a rotation the sensor-frame
+// direction d_s = R^T d mixes z into every component, so rho2, the
+// azimuth and inv_rho are per voxel and no run of z can be culled exactly
+// (r_vox is not provably monotone in z once rotated, and banded_atan's
+// monotonicity in float32 is unproved).  What the design removes instead:
+// - the rotation's products.  d_s,k = (x R0k + y R1k) + z R2k, summed in
+//   that order by the JAX twin (_sensor_direction) and the TPU kernel, so
+//   under -fmad=false the bracket is a per-column constant (each lane of
+//   the column's warp computes it once) and z R2k a per-z constant
+//   (general_setup_kernel writes (z, z R20, z R21, z R22) once per call):
+//   a voxel adds three pairs instead of nine products and six sums;
+// - work on voxels that cannot fuse: the voxel leaves at the first failed
+//   test, in order of cost, each a necessary condition of `ok`:
+//   (1) r_vox <= fl(M + tau), M the table's largest finite range (for any
+//       finite beam b.w <= M, so fl(b.w + tau) <= fl(M + tau); -inf when
+//       the table has none);
+//   (2) ring_ok (needs inv_rho and banded_atan, not the azimuth);
+//   (3) vertical_ok (needs only r_vox, ringf and ring);
+//   (4) horizontal_ok (needs the azimuth: atan2_poly's division);
+//   (5) the beam's isfinite(b.w) and r_vox <= b.w + tau, after the gather.
+//   A voxel that survives evaluates every expression the parent did, in
+//   the same order, so its bits cannot change; ops/tsdf_projective
+//   .general_rejects is the plain model of these stages;
+// - the map traffic of those voxels: value and weight are loaded only
+//   after (4), with the beam, three loads in flight together;
+// - the runtime modulo of the column: atan2_poly returns r in [0, pi_f]
+//   with its sign (banded_atan(t) lies in [0, 0.786] for t in [0, 1]), so
+//   az + pi_f lies in [0, 2 pi_f] (both ends exact) and colf = fl((az +
+//   pi_f) * colK) in [0, fl(2 pi_f * colK)], which rounds to at most
+//   `columns` for any column count below 2^21: rint(colf) lies in [0,
+//   columns] and one conditional subtraction is the floor mod
+//   (tests/test_torch_fusion_general.py holds this on the extreme inputs);
+// - the reciprocal's division: inv_rho = 1 / max(sqrt(rho2), 1e-20) is
+//   __frcp_rn, the correctly rounded reciprocal, the same bits as the
+//   correctly rounded quotient of 1.
+// The beam table (16 B x channels x columns, 2 MB at 128 x 1024) stays in
+// global memory: it is read only by the voxels past (4), through L1/L2,
+// where it stays resident; a column's voxels spread over many beam
+// columns under tilt, so no row can be staged per column as level_kernel
+// does.  One warp per (x, y) column, the lanes walking z in array order
+// (coalesced int16 traffic, any ring offset).
+//
+// What holds it on an H100: instruction issue.  The early-outs' paths are
+// prefixes of one another, so a warp iteration issues its deepest lane's
+// path (tools/sass_count.py counts them from the SASS and sets them
+// against the SMs' issue rate; PERF.md gives the counts).  The merge is the
+// longest part of the path and runs on about half of the warp iterations
+// of a room scan, though under a tenth of the voxels fuse.  A queue in
+// shared memory that merged the passing voxels 32 at a time removed that
+// divergence but cost as much in ballots and stores on every iteration; it
+// was measured and not kept.
+//
+// Level work on the general sweep.  At R = I the general sweep gives the
+// level sweep's bits: x*1 = x, and x + (+-0) = x for x != 0 while
+// +0 + (+-0) = +0, so d_s equals d exactly, signed zeros included, because
+// the coordinates come from integers and are never -0.  (Were one -0, d_s
+// could carry +0 instead; every later use of d_s squares it, compares it
+// with 0, where -0 and +0 agree, or scales it into elevation and azimuth
+// terms that are subtracted from nonzero constants, so the result would
+// not change either.)  The wrapper runs the general sweep at R = I for a
+// level fusion whose beam rows exceed the shared memory a block can opt
+// into (ws_fusion_max_channels).
 //
 // Bit parity with the JAX sweep rests on: -fmad=false (no contraction), no
 // fast math (IEEE sqrtf and `/`), rintf for jnp.round (half to even), every
@@ -85,6 +145,7 @@ namespace {
 constexpr int kLevelWarps = 4;            // warps per CTA, level sweep
 constexpr int kTile = 16;                 // (x, y) columns per level warp
 constexpr int kGeneralWarps = 8;          // warps (= columns) per CTA, general
+constexpr int kSetupThreads = 256;        // general_setup_kernel's one block
 constexpr unsigned kFull = 0xffffffffu;
 
 // float constants, in the order the Python wrapper packs them
@@ -166,26 +227,25 @@ __device__ __forceinline__ float ring_of(float dsz, float inv_rho,
   return ringf;
 }
 
-// _projective_math + _merge_planes for voxel i, whose beam is b and whose
-// map entries (ev, ew) the caller loaded ahead of the math.  The voxel's
-// acceptance comes first: a voxel that fails it skips the value's math.
-// Each expression is the one the sweep evaluates, so the bits are the same.
-__device__ __forceinline__ void fuse_voxel(int16_t* __restrict__ value,
-                                           int16_t* __restrict__ weight,
-                                           unsigned i, int ev, int ew,
-                                           float dx, float dy, float dz,
-                                           float r_vox, float ringf,
-                                           int ring, float col_res,
-                                           float4 b, const Params& p) {
-  const bool ring_ok = ring >= 0 && ring < p.channels;
+// The vertical acceptance of a voxel (the ring-interpolation band): sets
+// *v_res, which the value's weight reads again.
+__device__ __forceinline__ bool vertical_ok(float r_vox, float ringf,
+                                            int ring, const Params& p,
+                                            float* v_res) {
   const float delta_z = p.c[kDzpd] * r_vox * p.c[kInvMr];
-  const float v_res = r_vox * fabsf(ringf - (float)ring) * p.c[kSpacing];
-  const bool vertical_ok = v_res <= fmaxf(delta_z, p.c[kHalfRes]);
-  const float h_res = r_vox * col_res * p.c[kColStep];
-  const bool horizontal_ok = h_res <= p.c[kHalfRes];
-  if (!(ring_ok && isfinite(b.w) && vertical_ok && horizontal_ok
-        && r_vox <= b.w + p.c[kTau]))
-    return;
+  *v_res = r_vox * fabsf(ringf - (float)ring) * p.c[kSpacing];
+  return *v_res <= fmaxf(delta_z, p.c[kHalfRes]);
+}
+
+// The value, weight and merge of voxel i, whose update condition holds but
+// for the new weight being nonzero; its map entries (ev, ew) were loaded
+// by the caller.
+__device__ __forceinline__ void merge_voxel(int16_t* __restrict__ value,
+                                            int16_t* __restrict__ weight,
+                                            unsigned i, int ev, int ew,
+                                            float dx, float dy, float dz,
+                                            float r_vox, float v_res,
+                                            float4 b, const Params& p) {
   const float ex = dx - b.x, ey = dy - b.y, ez = dz - b.z;
   float val = sqrtf(ex * ex + ey * ey + ez * ez);
   val = fminf(val, p.c[kTau]);
@@ -212,6 +272,28 @@ __device__ __forceinline__ void fuse_voxel(int16_t* __restrict__ value,
   }
   value[i] = (int16_t)out_v;
   weight[i] = (int16_t)out_w;
+}
+
+// _projective_math + _merge_planes for voxel i, whose beam is b and whose
+// map entries (ev, ew) the caller loaded ahead of the math.  The voxel's
+// acceptance comes first: a voxel that fails it skips the value's math.
+// Each expression is the one the sweep evaluates, so the bits are the same.
+__device__ __forceinline__ void fuse_voxel(int16_t* __restrict__ value,
+                                           int16_t* __restrict__ weight,
+                                           unsigned i, int ev, int ew,
+                                           float dx, float dy, float dz,
+                                           float r_vox, float ringf,
+                                           int ring, float col_res,
+                                           float4 b, const Params& p) {
+  const bool ring_ok = ring >= 0 && ring < p.channels;
+  float v_res;
+  const bool v_ok = vertical_ok(r_vox, ringf, ring, p, &v_res);
+  const float h_res = r_vox * col_res * p.c[kColStep];
+  const bool horizontal_ok = h_res <= p.c[kHalfRes];
+  if (!(ring_ok && isfinite(b.w) && v_ok && horizontal_ok
+        && r_vox <= b.w + p.c[kTau]))
+    return;
+  merge_voxel(value, weight, i, ev, ew, dx, dy, dz, r_vox, v_res, b, p);
 }
 
 // The first index in [lo, hi) at which `pred` holds, or hi; `pred` must be
@@ -392,12 +474,39 @@ level_kernel(int16_t* __restrict__ value, int16_t* __restrict__ weight,
   }
 }
 
+// The general sweep's per-call terms, one block: zterm[a] = (z, z R20,
+// z R21, z R22) of array index a, and zterm[Z].x = fl(M + tau), M the
+// largest of the rows' largest finite ranges (-inf without one).
+__global__ void __launch_bounds__(kSetupThreads)
+general_setup_kernel(const float* __restrict__ cz,
+                     const float* __restrict__ rowmax,
+                     float4* __restrict__ zterm, Params p) {
+  __shared__ float part[kSetupThreads / 32];
+  const float* R = p.c + kR;
+  for (int a = threadIdx.x; a < p.Z; a += kSetupThreads) {
+    const float dz = cz[a];
+    zterm[a] = make_float4(dz, dz * R[6], dz * R[7], dz * R[8]);
+  }
+  float m = -__int_as_float(0x7f800000);         // -inf
+  for (int k = threadIdx.x; k < p.columns; k += kSetupThreads)
+    m = fmaxf(m, rowmax[k]);
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kSetupThreads / 32; ++w) m = fmaxf(m, part[w]);
+    zterm[p.Z] = make_float4(m + p.c[kTau], 0.0f, 0.0f, 0.0f);
+  }
+}
+
 // General sweep (any R): one warp per (x, y) column, the lanes walking z in
-// array order; every voxel rotates its direction and gathers its beam.
+// array order; a voxel leaves at its first failed acceptance test (the
+// note at the top).
 __global__ void __launch_bounds__(32 * kGeneralWarps)
 general_kernel(int16_t* __restrict__ value, int16_t* __restrict__ weight,
                const float* __restrict__ cx, const float* __restrict__ cy,
-               const float* __restrict__ cz,
+               const float4* __restrict__ zterm,
                const float4* __restrict__ beams, Params p) {
   const int lane = threadIdx.x & 31;
   const int x = blockIdx.y;
@@ -406,21 +515,35 @@ general_kernel(int16_t* __restrict__ value, int16_t* __restrict__ weight,
   const unsigned base = ((unsigned)x * p.Y + y) * p.Z;
   const float dx = cx[x], dy = cy[y];
   const float* R = p.c + kR;
+  // the column's halves of d_s = R^T d, k = x, y, z: x R0k + y R1k
+  const float sx = dx * R[0] + dy * R[3];
+  const float sy = dx * R[1] + dy * R[4];
+  const float sz = dx * R[2] + dy * R[5];
+  const float lim = zterm[p.Z].x;
+  const float half_res = p.c[kHalfRes];
   for (int a = lane; a < p.Z; a += 32) {
-    const unsigned i = base + a;
-    const int ev = value[i], ew = weight[i];     // in flight during the math
-    const float dz = cz[a];
-    // sensor-frame direction d_s = R^T d
-    const float dsx = dx * R[0] + dy * R[3] + dz * R[6];
-    const float dsy = dx * R[1] + dy * R[4] + dz * R[7];
-    const float dsz = dx * R[2] + dy * R[5] + dz * R[8];
-    const ColumnTerms t = column_terms(dsx, dsy, p);
-    const float r_vox = sqrtf(t.rho2 + dsz * dsz);
+    const float4 zt = zterm[a];
+    const float dsx = sx + zt.y, dsy = sy + zt.z, dsz = sz + zt.w;
+    const float rho2 = dsx * dsx + dsy * dsy;
+    const float r_vox = sqrtf(rho2 + dsz * dsz);
+    if (!(r_vox <= lim)) continue;                              // (1)
+    const float inv_rho = __frcp_rn(fmaxf(sqrtf(rho2), p.c[kEps20]));
     int ring;
-    const float ringf = ring_of(dsz, t.inv_rho, p, &ring);
-    const int ring_c = min(max(ring, 0), p.channels - 1);
-    fuse_voxel(value, weight, i, ev, ew, dx, dy, dz, r_vox, ringf, ring,
-               t.col_res, beams[t.col * p.channels + ring_c], p);
+    const float ringf = ring_of(dsz, inv_rho, p, &ring);
+    if (ring < 0 || ring >= p.channels) continue;               // (2)
+    float v_res;
+    if (!vertical_ok(r_vox, ringf, ring, p, &v_res)) continue;  // (3)
+    const float colf = (atan2_poly(dsy, dsx, p) + p.c[kPi]) * p.c[kColK];
+    const float cr = rintf(colf);
+    const float col_res = fabsf(colf - cr);
+    if (!(r_vox * col_res * p.c[kColStep] <= half_res)) continue;  // (4)
+    int col = (int)cr;                 // in [0, columns]: the note's bound
+    if (col >= p.columns) col -= p.columns;
+    const unsigned i = base + a;
+    const int ev = value[i], ew = weight[i];
+    const float4 b = beams[col * p.channels + ring];
+    if (!(isfinite(b.w) && r_vox <= b.w + p.c[kTau])) continue;  // (5)
+    merge_voxel(value, weight, i, ev, ew, dx, dy, zt.x, r_vox, v_res, b, p);
   }
 }
 
@@ -428,18 +551,30 @@ size_t level_smem(int channels) {
   return sizeof(float4) * 2 * kLevelWarps * channels;
 }
 
+// the shared memory a block of the current device can opt into, in *bytes
+cudaError_t optin_smem(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(bytes,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
 }  // namespace
 
 // Kernel K1: prepare the beam table (float4 rows and row maxima into the
 // caller's `beams` and `rowmax` scratch), then sweep and merge in place.
+// The general sweep (level == 0) also fills the caller's `zterm` scratch,
+// Z + 1 float4; the level sweep ignores it.
 extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
                                      const void* cx, const void* cy,
                                      const void* cz, const void* rng,
                                      const void* endpoint,
                                      const void* scanner, void* beams,
-                                     void* rowmax, const float* consts,
-                                     int X, int Y, int Z, int channels,
-                                     int columns, int max_weight, int level,
+                                     void* rowmax, void* zterm,
+                                     const float* consts, int X, int Y,
+                                     int Z, int channels, int columns,
+                                     int max_weight, int level,
                                      void* stream) {
   Params p;
   for (int k = 0; k < kNumConsts; ++k) p.c[k] = consts[k];
@@ -463,11 +598,20 @@ extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
   if (level) {
     const int tiles = (Y + kTile - 1) / kTile;
     const dim3 grid((tiles + kLevelWarps - 1) / kLevelWarps, X);
-    level_kernel<<<grid, 32 * kLevelWarps, level_smem(channels), s>>>(
-        v, w, fx, fy, fz, bm, rm, p);
+    const size_t smem = level_smem(channels);
+    if (smem > 48 * 1024) {          // beyond the default: opt in
+      const cudaError_t err = cudaFuncSetAttribute(
+          level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    level_kernel<<<grid, 32 * kLevelWarps, smem, s>>>(v, w, fx, fy, fz, bm,
+                                                      rm, p);
   } else {
+    auto* zt = (float4*)zterm;
+    general_setup_kernel<<<1, kSetupThreads, 0, s>>>(fz, rm, zt, p);
     const dim3 grid((Y + kGeneralWarps - 1) / kGeneralWarps, X);
-    general_kernel<<<grid, 32 * kGeneralWarps, 0, s>>>(v, w, fx, fy, fz, bm,
+    general_kernel<<<grid, 32 * kGeneralWarps, 0, s>>>(v, w, fx, fy, zt, bm,
                                                        p);
   }
   return (int)cudaGetLastError();
@@ -475,8 +619,12 @@ extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
 
 extern "C" int ws_fusion_num_consts() { return kNumConsts; }
 
-// the largest channel count whose level-sweep rows fit the 48 KB of shared
-// memory a launch gets without opting in
+// The largest channel count whose level-sweep rows fit the shared memory a
+// block of the current device can opt into (1,816 at the H100's 232,448
+// bytes); a negative cudaError_t on failure.
 extern "C" int ws_fusion_max_channels() {
-  return (int)((48 * 1024) / level_smem(1));
+  int bytes = 0;
+  const cudaError_t err = optin_smem(&bytes);
+  if (err != cudaSuccess) return -(int)err;
+  return (int)(bytes / level_smem(1));
 }

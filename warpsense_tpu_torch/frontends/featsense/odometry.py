@@ -12,7 +12,8 @@ lidar_optimization.cpp):
 * Ceres' Huber(0.1) LM becomes an IRLS Gauss-Newton over the analytic
   residual Jacobians with the quaternion left-increment update;
 * PCL VoxelGrid / CropBox map maintenance becomes sort + segment-mean voxel
-  centroids over fixed-capacity masked arrays.
+  centroids over fixed-capacity masked arrays (the segment sums run in a
+  fixed order on the card, ``ops/segment.py``, so a run repeats its bits).
 
 The JAX ``lax.scan``/``lax.cond`` loops are host loops with the same trip
 counts; nothing in them syncs with the device.  The JAX host shell slices
@@ -32,6 +33,7 @@ import torch
 
 from ...core import geometry
 from ...core.geometry import cross
+from ...ops.segment import segment_sum
 
 
 class FeatureMapState(NamedTuple):
@@ -243,11 +245,9 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
                                       device=points.device),
                            torch.any(sk[1:] != sk[:-1], dim=-1)])
     gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
-    sums = torch.zeros((N, 3), dtype=torch.float32,
-                       device=points.device).index_add_(0, gid,
-                                                        sp * wf[:, None])
-    cnts = torch.zeros(N, dtype=torch.float32,
-                       device=points.device).index_add_(0, gid, wf)
+    acc = segment_sum(torch.cat([sp * wf[:, None], wf[:, None]], dim=1),
+                      gid, N)
+    sums, cnts = acc[:, :3], acc[:, 3]
     centroid = sums / torch.clamp(cnts, min=1.0)[:, None]
     vmask = cnts > 0.0
     ordv = torch.argsort((~vmask).to(torch.uint8), stable=True)[:capacity]

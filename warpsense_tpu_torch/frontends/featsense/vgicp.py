@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ...core import geometry
+from ...ops.segment import segment_sum
 
 KEY_BITS = 10
 KEY_RANGE = 1 << (KEY_BITS - 1)          # +-512 voxels around the origin
@@ -67,12 +68,10 @@ def build_voxel_table(points, mask, origin, resolution: float) -> VoxelTable:
     new_group = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                            sk[1:] != sk[:-1]])
     gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
-    zeros = torch.zeros(N, dtype=torch.float32, device=dev)
-    cnt = zeros.index_add(0, gid, wf)
-    psum = torch.zeros((N, 3), device=dev).index_add_(0, gid,
-                                                      sp * wf[:, None])
-    ppt = torch.zeros((N, 3, 3), device=dev).index_add_(
-        0, gid, torch.einsum("ni,nj->nij", sp, sp) * wf[:, None, None])
+    outer = torch.einsum("ni,nj->nij", sp, sp) * wf[:, None, None]
+    acc = segment_sum(torch.cat([wf[:, None], sp * wf[:, None],
+                                 outer.reshape(N, 9)], dim=1), gid, N)
+    cnt, psum, ppt = acc[:, 0], acc[:, 1:4], acc[:, 4:].reshape(N, 3, 3)
     n = torch.clamp(cnt, min=1.0)
     mean = psum / n[:, None]
     cov = ppt / n[:, None, None] - torch.einsum("ni,nj->nij", mean, mean)

@@ -26,7 +26,7 @@ def _lib():
     lib = _build.load("fusion")
     fn = lib.ws_fusion_sweep_merge
     if fn.argtypes is None:
-        fn.argtypes = [_VP] * 11 + [_I] * 7 + [_VP]
+        fn.argtypes = [_VP] * 12 + [_I] * 7 + [_VP]
         fn.restype = _I
         lib.ws_fusion_num_consts.restype = _I
         lib.ws_fusion_max_channels.restype = _I
@@ -62,7 +62,11 @@ def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
     into ``value``/``weight`` (int16) IN PLACE.
 
     ``level=True`` runs the level sweep (``level_kernel``), which requires
-    ``rotation`` to be the identity."""
+    ``rotation`` to be the identity; where its beam rows exceed the shared
+    memory a block can opt into (``max_level_channels``), the general
+    sweep runs at the identity instead, which gives the same bits
+    (csrc/fusion.cu).  ``launches`` counts every call that launches the
+    kernel, ``general_launches`` those that ran the general sweep."""
     if level and not torch.equal(rotation.detach().cpu().to(torch.float32),
                                  torch.eye(3)):
         raise ValueError("level fusion needs the identity grid rotation")
@@ -92,9 +96,7 @@ def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
     if rng_tab.numel() != channels * columns:
         raise ValueError("beam table size != channels * columns")
     lib = _lib()
-    if level and channels > lib.ws_fusion_max_channels():
-        raise ValueError(f"level fusion stages beam rows of at most "
-                         f"{lib.ws_fusion_max_channels()} channels")
+    general = not level or channels > max_level_channels()
     dev = value.device
     rng = rng_tab.to(device=dev, dtype=torch.float32).contiguous()
     ends = endpoint.to(device=dev, dtype=torch.float32).contiguous()
@@ -106,6 +108,9 @@ def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
     beams = torch.empty((channels * columns, 4), dtype=torch.float32,
                         device=dev)
     rowmax = torch.empty(columns, dtype=torch.float32, device=dev)
+    # the general sweep's per-z rotation terms and its range limit
+    zterm = (torch.empty((Z + 1, 4), dtype=torch.float32, device=dev)
+             if general else None)
     consts = fusion_consts(rotation, **kw)
     assert len(consts) == lib.ws_fusion_num_consts()
     carr = (ctypes.c_float * len(consts))(*consts)
@@ -113,11 +118,24 @@ def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
         value.data_ptr(), weight.data_ptr(), coords[0].data_ptr(),
         coords[1].data_ptr(), coords[2].data_ptr(), rng.data_ptr(),
         ends.data_ptr(), scanner.data_ptr(), beams.data_ptr(),
-        rowmax.data_ptr(), ctypes.cast(carr, _VP), X, Y, Z, channels,
-        columns, int(max_weight), int(bool(level)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        rowmax.data_ptr(), None if zterm is None else zterm.data_ptr(),
+        ctypes.cast(carr, _VP), X, Y, Z, channels, columns, int(max_weight),
+        int(not general), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "fusion kernel K1")
     fusion_sweep_merge.launches += 1
+    if general:
+        fusion_sweep_merge.general_launches += 1
 
 
 fusion_sweep_merge.launches = 0
+fusion_sweep_merge.general_launches = 0
+
+
+def max_level_channels() -> int:
+    """The largest channel count the level sweep takes on the current CUDA
+    device: two beam rows per warp in the shared memory a block can opt
+    into (1,816 channels on an H100)."""
+    n = _lib().ws_fusion_max_channels()
+    if n < 0:
+        _build.check(-n, "fusion kernel K1's shared-memory query")
+    return n

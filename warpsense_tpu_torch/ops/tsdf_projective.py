@@ -195,15 +195,10 @@ def _sensor_direction(cx, cy, cz, rotation):
     return x, y, z, dsx, dsy, dsz, rho2, _sqrt(rho2 + dsz * dsz)
 
 
-def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
-                            rotation, *, tau, resolution, channels, columns,
-                            vfov_deg):
-    """The sweep over a box of voxels given by per-axis scanner-relative
-    coordinates (f32 mm; any x slice of the window).  Returns the (new
-    value, new weight) int32 planes of shape (len(cx), len(cy), len(cz)).
-
-    (The JAX function takes global voxel coordinates; ``relative_coords``
-    computes the same f32 values from them.)"""
+def _bins(cx, cy, cz, rotation, *, channels, columns, vfov_deg):
+    """Each voxel's broadcast offsets (x, y, z), its length r_vox and its
+    beam bin: the float ring and column (ringf, colf) and their integers
+    (ring, unclamped; col, floor mod ``columns``)."""
     x, y, z, dsx, dsy, dsz, rho2, r_vox = _sensor_direction(cx, cy, cz,
                                                             rotation)
     az = atan2_poly(dsy, dsx)
@@ -217,6 +212,39 @@ def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
     ring = torch.round(ringf).to(torch.int32)
     colf = (az + _f32(math.pi, cx)) * _f32(columns / (2 * math.pi), cx)
     col = torch.remainder(torch.round(colf).to(torch.int32), columns)
+    return x, y, z, r_vox, ringf, ring, colf, col
+
+
+def _acceptance(r_vox, ringf, ring, colf, *, resolution, channels, columns,
+                vfov_deg):
+    """The beam-free acceptance tests: (v_res, vertical_ok,
+    horizontal_ok).  Vertical: the ring-interpolation band; horizontal: the
+    ray's own cell footprint (update_tsdf.cu:101-125)."""
+    f = r_vox
+    spacing = math.radians(vfov_deg) / (channels - 1)
+    dzpd = dz_per_distance(channels, vfov_deg)
+    delta_z = _f32(dzpd, f) * r_vox * _f32(1.0 / MATRIX_RESOLUTION, f)
+    v_res = r_vox * torch.abs(ringf - ring.to(torch.float32)) \
+        * _f32(spacing, f)
+    half_res = _f32(resolution * 0.5, f)
+    vertical_ok = v_res <= torch.maximum(delta_z, half_res)
+    col_res = torch.abs(colf - torch.round(colf))
+    h_res = r_vox * col_res * _f32(2 * math.pi / columns, f)
+    return v_res, vertical_ok, h_res <= half_res
+
+
+def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
+                            rotation, *, tau, resolution, channels, columns,
+                            vfov_deg):
+    """The sweep over a box of voxels given by per-axis scanner-relative
+    coordinates (f32 mm; any x slice of the window).  Returns the (new
+    value, new weight) int32 planes of shape (len(cx), len(cy), len(cz)).
+
+    (The JAX function takes global voxel coordinates; ``relative_coords``
+    computes the same f32 values from them.)"""
+    x, y, z, r_vox, ringf, ring, colf, col = _bins(
+        cx, cy, cz, rotation, channels=channels, columns=columns,
+        vfov_deg=vfov_deg)
     ring_ok = (ring >= 0) & (ring < channels)
     ring_c = torch.clamp(ring, 0, channels - 1)
 
@@ -239,8 +267,6 @@ def _projective_math(dx, dy, dz, r_vox, ringf, ring, ring_ok, colf, r_beam,
                      vfov_deg):
     """Per-voxel fusion math; positions relative to the scanner (mm, f32).
     Returns (value, weight) int32 planes."""
-    spacing = math.radians(vfov_deg) / (channels - 1)
-    dzpd = dz_per_distance(channels, vfov_deg)
     weight_epsilon = tau // 10
     f = r_vox
 
@@ -250,18 +276,10 @@ def _projective_math(dx, dy, dz, r_vox, ringf, ring, ring_ok, colf, r_beam,
     value = torch.minimum(value, _f32(float(tau), f))
     value = torch.where(r_vox > r_beam, -value, value)
 
-    # vertical acceptance: the ring-interpolation band; horizontal: the
-    # ray's own cell footprint (update_tsdf.cu:101-125)
-    delta_z = _f32(dzpd, f) * r_vox * _f32(1.0 / MATRIX_RESOLUTION, f)
-    v_res = r_vox * torch.abs(ringf - ring.to(torch.float32)) \
-        * _f32(spacing, f)
-    half_res = _f32(resolution * 0.5, f)
-    vertical_ok = v_res <= torch.maximum(delta_z, half_res)
-    col_res = torch.abs(colf - torch.round(colf))
-    h_res = r_vox * col_res * _f32(2 * math.pi / columns, f)
-    horizontal_ok = h_res <= half_res
-
-    interp = v_res > half_res                            # off-ray band
+    v_res, vertical_ok, horizontal_ok = _acceptance(
+        r_vox, ringf, ring, colf, resolution=resolution, channels=channels,
+        columns=columns, vfov_deg=vfov_deg)
+    interp = v_res > _f32(resolution * 0.5, f)           # off-ray band
     w = torch.where(
         value < -weight_epsilon,
         torch.floor((_f32(WEIGHT_RESOLUTION, f) * (_f32(tau, f) + value))
@@ -373,39 +391,92 @@ def column_z_limits(cx, cy, cz, rng_tab, *, tau, resolution, channels,
     return skip, lo, hi, rot
 
 
+# the general sweep's early-outs, in its order (general_rejects)
+GENERAL_STAGES = ("range", "ring", "vertical", "horizontal", "beam")
+
+
+def general_rejects(cx, cy, cz, rng_tab, rotation, *, tau, resolution,
+                    channels, columns, vfov_deg):
+    """Plain model of the early-outs of kernel K1's general sweep.
+
+    Returns, for each voxel ((X, Y, Z) int8, array order), the stage at
+    which the sweep leaves it: ``k + 1`` for ``GENERAL_STAGES[k]``, or 0 for
+    a voxel that passes every stage and reaches the value's math.  Each
+    stage tests a necessary condition of the sweep's ``ok``, in the
+    kernel's order (csrc/fusion.cu):
+
+    1. range: ``r_vox <= M + tau``, M the table's largest finite range
+       (any finite beam range is at most M, and rounding is monotone);
+    2. ring: ``ring_ok``;
+    3. vertical: ``vertical_ok``;
+    4. horizontal: ``horizontal_ok``;
+    5. beam: the voxel's beam range is finite and ``r_vox <= range + tau``.
+
+    Each expression is the sweep's own (``_bins``, ``_acceptance``)."""
+    X, Y, Z = len(cx), len(cy), len(cz)
+    kw = dict(channels=channels, columns=columns, vfov_deg=vfov_deg)
+    tau_f = _f32(float(tau), cx)
+    finite = rng_tab[torch.isfinite(rng_tab)]
+    lim = (finite.max() if finite.numel() else _f32(-math.inf, cx)) + tau_f
+    out = torch.empty((X, Y, Z), dtype=torch.int8, device=cx.device)
+    step = max(1, _SLAB_VOXELS // (Y * Z))
+    for x0 in range(0, X, step):
+        sl = slice(x0, min(X, x0 + step))
+        _, _, _, r_vox, ringf, ring, colf, col = _bins(cx[sl], cy, cz,
+                                                        rotation, **kw)
+        _, vertical_ok, horizontal_ok = _acceptance(
+            r_vox, ringf, ring, colf, resolution=resolution, **kw)
+        r_beam = rng_tab[(col * channels
+                          + torch.clamp(ring, 0, channels - 1)).to(
+                              torch.int64)]
+        passes = (r_vox <= lim, (ring >= 0) & (ring < channels), vertical_ok,
+                  horizontal_ok,
+                  torch.isfinite(r_beam) & (r_vox <= r_beam + tau_f))
+        stage = torch.zeros(r_vox.shape, dtype=torch.int8, device=cx.device)
+        for k in reversed(range(len(passes))):       # the first failure wins
+            stage = torch.where(passes[k], stage,
+                                torch.full_like(stage, k + 1))
+        out[sl] = stage
+    return out
+
+
 def fusion_work(cx, cy, cz, rng_tab, endpoint, scanner_mm, rotation, *,
                 level, tau, resolution, channels, columns, vfov_deg) -> dict:
     """What one K1 call has to do on these inputs, for its bound: the
     window's voxels and columns, ``fused_voxels`` (those whose ``ok``
     holds: the only ones whose map entries are read and written),
     ``swept_voxels`` (those that run the per-voxel math: inside
-    ``column_z_limits``' runs for the level sweep, all of them otherwise)
-    and ``ranged_voxels`` (those whose ``r_vox`` is within tau of the
+    ``column_z_limits``' runs for the level sweep, all of them otherwise),
+    ``ranged_voxels`` (those whose ``r_vox`` is within tau of the
     table's largest finite range, a necessary condition of ``ok`` that
-    needs no beam: the others are rejected by their length alone)."""
+    needs no beam: the others are rejected by their length alone) and
+    ``left_at``, the general sweep's voxels by the stage at which it
+    leaves them (``general_rejects``; "none": they reach the value's
+    math)."""
     X, Y, Z = len(cx), len(cy), len(cz)
     kw = dict(tau=tau, resolution=resolution, channels=channels,
               columns=columns, vfov_deg=vfov_deg)
-    finite = rng_tab[torch.isfinite(rng_tab)]
-    lim = (finite.max() if finite.numel() else _f32(-math.inf, cx)) \
-        + _f32(float(tau), cx)
     step = max(1, _SLAB_VOXELS // (Y * Z))
-    fused = ranged = 0
+    fused = 0
+    stages = torch.zeros(len(GENERAL_STAGES) + 1, dtype=torch.int64)
     for x0 in range(0, X, step):
         sl = slice(x0, x0 + step)
         fused += int((projective_sweep_coords(
             cx[sl], cy, cz, rng_tab, endpoint, scanner_mm, rotation,
             **kw)[1] != 0).sum())
-        ranged += int((_sensor_direction(cx[sl], cy, cz, rotation)[-1]
-                       <= lim).sum())
+        stages += torch.bincount(general_rejects(
+            cx[sl], cy, cz, rng_tab, rotation, **kw).reshape(-1).to(
+                torch.int64), minlength=len(stages)).cpu()
     swept = X * Y * Z
     if level:
         _, lo, hi, _ = column_z_limits(cx, cy, cz, rng_tab, tau=tau,
                                        resolution=resolution,
                                        channels=channels, columns=columns)
         swept = int((hi - lo).sum())
+    left_at = dict(zip(("none", *GENERAL_STAGES), stages.tolist()))
     return dict(voxels=X * Y * Z, columns=X * Y, fused_voxels=fused,
-                swept_voxels=swept, ranged_voxels=ranged)
+                swept_voxels=swept,
+                ranged_voxels=X * Y * Z - left_at["range"], left_at=left_at)
 
 
 def fusion_inputs(state: LocalMapState, points, points_mask, scanner_pos,

@@ -50,8 +50,12 @@ def resolve_fusion(fusion: str, *, size, channels: int,
                    columns: int = 1024) -> str:
     """"auto" -> "projective-level" (the production level grid with the
     attitude fallback) when the window fits K1's 32-bit voxel index;
-    explicit names pass through.  The port's K1 has no limit on the z
-    extent, the channel count or the column count."""
+    explicit names pass through.  K1 takes any z extent, channel count and
+    column count: its level sweep stages two beam rows per warp in shared
+    memory, which holds up to 1,816 channels on an H100 (after opting in
+    to the 232,448 bytes a block can have); beyond that its wrapper runs
+    the general sweep at the identity rotation, which gives the same bits,
+    so no channel count raises."""
     del channels, columns
     if fusion != "auto":
         return fusion
