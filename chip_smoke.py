@@ -52,7 +52,23 @@ Phases (each raises on failure; nothing falls back to the CPU):
 10. FeatsenseApp(device="cuda", fusion="auto") at configs/default.yaml on
    10 scans with translation and yaw, twice: finite poses, every pose of
    the second run equal to the first's bit for bit, final-pose error below
-   FEATSENSE_BOUND_M, K1 launched; then 3 scans with fusion="raymarch".
+   FEATSENSE_BOUND_M, K1 launched; then 3 scans with fusion="raymarch";
+11. FastsenseApp(device="cuda") at configs/default.yaml (FASTSENSE_APP):
+   12 scans with an orientation IMU sample before each, first replayed
+   with sync() after each scan (ATE at most twice the JAX app's, every
+   fusion one launch of K1's general sweep, a (state, fields) snapshot
+   taken before the first worker update bit-unchanged after the last),
+   then the same scans without sync() (every job published by
+   terminate(), finite poses); both profiled: scans/s, the registration
+   span, each scan's GN iterations, each update's shift or clone, fusion
+   and fields; then a held run without sync(): after the first scan, 6
+   scans from one pose half a voxel away, the gate every second scan, so
+   each worker update fuses a clone of the published map (no shift), and
+   every snapshot taken after a scan stays bit-unchanged;
+12. eval.slam_eval in-process at its defaults with --device cuda
+   --in-memory-map: warpsense (20 frames, fast mode: K1's level sweep and
+   K2 launched) and featsense (10 frames), each ATE at most twice the JAX
+   CLI's on the same arguments.
 
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
@@ -171,6 +187,28 @@ FEATSENSE = dict(scans=10, warmup=2, raymarch_scans=3, step_m=0.12,
                  noise=0.003, channels=128, columns=1024)
 FEATSENSE_BOUND_M = 2 * 0.10133
 DEFAULT_YAML = ROOT / "warpsense_tpu_torch" / "configs" / "default.yaml"
+# FastsenseApp at configs/default.yaml (parity mode, 625 x 625 x 391, tau
+# 1000 mm) on APP's walk extended to 12 scans, with an orientation IMU
+# sample before each scan and the reference's gate (every 100 scans or
+# 0.25 m: a fusion about every third scan, a worker shift on each).  Cuts:
+# 12 scans; the global map in memory.  The JAX FastsenseApp on the CPU, on
+# these scans at a 359 x 265 x 125 window that holds the room
+# (FASTSENSE_JAX_WINDOW_M, whole meters as the config takes them), reaches
+# FASTSENSE_JAX_ATE_M (tests/_jax_fastsense_reference.py); the bound is
+# twice that.
+FASTSENSE_APP = dict(APP, scans=12, capacity=32768, update_frequency=100,
+                     update_distance_m=0.25, held_scans=6)
+FASTSENSE_JAX_WINDOW_M = (23, 17, 8)
+FASTSENSE_JAX_ATE_M = 0.07810244042916908
+# eval.slam_eval in-process at its own defaults (fast mode, 391 x 391 x 157
+# at 64 mm, synthetic 128 x 1024 walk).  The JAX CLI on the CPU with the
+# same arguments reaches SLAM_EVAL_JAX_ATE_M (tests/_jax_fastsense_reference
+# .py); each run's bound is twice its figure.
+SLAM_EVAL_ARGS = {
+    "warpsense": ["--pipeline", "warpsense", "--frames", "20", "--channels",
+                  "128", "--columns", "1024"],
+    "featsense": ["--pipeline", "featsense", "--frames", "10"]}
+SLAM_EVAL_JAX_ATE_M = {"warpsense": 0.0039, "featsense": 0.0063}
 # K2's seeded windows: full-range int16 values, weights nonzero with this
 # probability (on every face too), checked at these taus
 FIELDS_SEED = 7
@@ -1010,6 +1048,206 @@ def run_featsense_app(torch, cfg, device):
     return rep
 
 
+# ---------------------------------------------------------------- phase 11
+def fastsense_imu(gt):
+    """Each scan's orientation IMU sample: the sensor's rotation in the
+    first sensor's frame as an (x, y, z, w) quaternion."""
+    from warpsense_tpu_torch.io.trajectory import _quat_from_mat
+    return [_quat_from_mat(gt[0][:3, :3].T @ p[:3, :3]) for p in gt]
+
+
+def fastsense_run(torch, cfg, params, gt, scans, device, *, replay,
+                  on_scan=None):
+    """One FastsenseApp run through its callbacks, profiled (its spans,
+    each published update's steps, ``FastsenseApp.update_ms``, and each
+    scan's GN iterations): with ``replay``, ``sync()`` after each scan.
+    Returns (app after terminate, poses, the report's fields)."""
+    import numpy as np
+
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.pipeline.fastsense import FastsenseApp
+    from warpsense_tpu_torch.utils.imu import ImuSample
+    app = FastsenseApp(params, in_memory_map=True, capacity=cfg["capacity"],
+                       update_frequency=cfg["update_frequency"],
+                       update_distance_m=cfg["update_distance_m"],
+                       device=device, profile=True)
+    ev = RuntimeEvaluator.get_instance()
+    ev.clear()
+    poses = []
+    reset_launches()
+    for i, (scan, q) in enumerate(zip(scans, fastsense_imu(gt))):
+        if i == cfg["warmup"]:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        app.imu_callback(ImuSample(0.1 * i - 1e-3, np.zeros(3), q))
+        poses.append(app.cloud_callback(scan, 0.1 * i))
+        if on_scan is not None:
+            on_scan(i, app)
+        if replay:
+            app.sync()
+    wall = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    app.terminate()
+    torch.cuda.synchronize()
+    rep = dict(scans=len(scans), scans_per_s=(len(scans) - cfg["warmup"])
+               / wall, terminate_s=time.perf_counter() - t0,
+               jobs=app._jobs_submitted, published=app.updates_published,
+               launches=read_launches(), ate_m=ate_m(poses, gt),
+               finite=bool(np.all(np.isfinite(np.stack(poses)))),
+               gn_iterations=app.gn_iterations,
+               stage_avg_ms={r["task"]: r["avg"] / 1000.0
+                             for r in ev.to_rows()},
+               update_avg_ms={
+                   k: float(np.mean([u[k] for u in app.update_ms if k in u]))
+                   for k in ("shift", "clone", "fusion", "fields")
+                   if any(k in u for u in app.update_ms)},
+               update_ms=app.update_ms)
+    return app, poses, rep
+
+
+def fastsense_held(torch, cfg, params, device):
+    """FastsenseApp without ``sync()`` on a scan from the walk's start and
+    then ``held_scans`` scans from one pose half a voxel from it on each
+    axis, the gate every second scan: every worker update fuses without a
+    voxel move, so it fuses a clone of the published state while the
+    caller registers.  A snapshot of the published (state, fields) pair
+    is taken after each scan and compared at the end."""
+    import numpy as np
+
+    from warpsense_tpu_torch.io.synthetic import (BoxWorld, render_scan,
+                                                  walk_trajectory)
+    from warpsense_tpu_torch.pipeline.fastsense import FastsenseApp
+    from warpsense_tpu_torch.utils.imu import ImuSample
+    start = walk_trajectory(1, step_m=cfg["step_m"])[0]
+    held = start.copy()
+    held[:3, 3] += start[:3, :3] @ np.full(3, params.map.resolution / 2000.0)
+    rng = np.random.default_rng(5)
+    app = FastsenseApp(params, in_memory_map=True, capacity=cfg["capacity"],
+                       update_frequency=2,
+                       update_distance_m=cfg["update_distance_m"],
+                       device=device, profile=True)
+    snaps = []
+    for i, pose in enumerate([start] + [held] * cfg["held_scans"]):
+        scan = render_scan(BoxWorld.default(), pose, channels=cfg["channels"],
+                           columns=cfg["columns"], noise_std=cfg["noise"],
+                           rng=rng)
+        app.imu_callback(ImuSample(0.1 * i - 1e-3, np.zeros(3),
+                                   np.array([0.0, 0.0, 0.0, 1.0])))
+        app.cloud_callback(scan, 0.1 * i)
+        with app._snap_lock:
+            pair = (*app.state, *app._fields)
+        if not snaps or pair[0] is not snaps[-1][0][0]:   # a new snapshot
+            snaps.append((pair, [t.clone() for t in pair]))
+    app.terminate()
+    torch.cuda.synchronize()
+    return dict(
+        scans=cfg["held_scans"] + 1, snapshots=len(snaps),
+        jobs=app._jobs_submitted, published=app.updates_published,
+        clones=sum("clone" in u for u in app.update_ms),
+        shifts=sum("shift" in u for u in app.update_ms),
+        snapshots_unchanged=all(torch.equal(a, b) for pair, copy in snaps
+                                for a, b in zip(pair, copy)),
+        map_moved_on=not torch.equal(snaps[0][0][1], snaps[-1][0][1]),
+        update_ms=app.update_ms)
+
+
+def run_fastsense(torch, cfg, device):
+    """FastsenseApp at the default config: the deterministic replay (ATE
+    against the JAX app's, every fusion one launch of K1's general sweep,
+    a snapshot taken before the first worker update unchanged after the
+    last), then the same scans without ``sync()``."""
+    params = default_params()
+    if params.registration.mode != "parity":
+        raise AssertionError("configs/default.yaml is not in parity mode")
+    gt, scans = app_scans(cfg)
+    snap = {}
+
+    def take(i, app):
+        if i == 0:                 # before any worker job was submitted
+            with app._snap_lock:
+                pair = (*app.state, *app._fields)
+            snap.update(pair=pair, copy=[t.clone() for t in pair],
+                        published=app.updates_published)
+    app, poses, rep = fastsense_run(torch, cfg, params, gt, scans, device,
+                                    replay=True, on_scan=take)
+    rep["snapshot_unchanged"] = all(
+        torch.equal(a, b) for a, b in zip(snap["pair"], snap["copy"]))
+    rep["snapshot_published_after"] = rep["published"] - snap["published"]
+    rep["jax_ate_m"] = FASTSENSE_JAX_ATE_M
+    del snap, app
+    torch.cuda.empty_cache()
+    _, async_poses, async_rep = fastsense_run(torch, cfg, params, gt, scans,
+                                              device, replay=False)
+    rep["async"] = async_rep
+    torch.cuda.empty_cache()
+    rep["held"] = held = fastsense_held(torch, cfg, params, device)
+    torch.cuda.empty_cache()
+    log("[fastsense]", json.dumps(rep))
+    launches = rep["launches"]
+    if not (rep["finite"] and async_rep["finite"]):
+        raise AssertionError("non-finite fastsense pose")
+    if not rep["ate_m"] <= 2 * FASTSENSE_JAX_ATE_M:
+        raise AssertionError(f"fastsense ATE {rep['ate_m']:.4f} m > twice "
+                             f"JAX's {FASTSENSE_JAX_ATE_M} m")
+    if not (launches["fusion"] == launches["fusion_general"]
+            == rep["published"] == rep["jobs"] + 1):
+        raise AssertionError(f"fastsense fusions are not one general K1 "
+                             f"launch per published update: {rep}")
+    if rep["jobs"] < 2 or rep["snapshot_published_after"] < 2:
+        raise AssertionError(f"too few worker updates: {rep}")
+    if not rep["snapshot_unchanged"]:
+        raise AssertionError("a published snapshot changed after a later "
+                             "update")
+    if async_rep["published"] != async_rep["jobs"] + 1:
+        raise AssertionError(f"async fastsense left jobs unpublished: "
+                             f"{async_rep}")
+    if async_rep["launches"]["fusion_general"] != async_rep["published"]:
+        raise AssertionError(f"async fastsense launches: {async_rep}")
+    if not (held["published"] == held["jobs"] + 1
+            == held["clones"] + 1 == cfg["held_scans"] // 2 + 1):
+        raise AssertionError(f"held fastsense updates were not each one "
+                             f"clone without a shift: {held}")
+    if not (held["snapshots"] >= 2 and held["snapshots_unchanged"]
+            and held["map_moved_on"]):
+        raise AssertionError(f"a published snapshot changed after a later "
+                             f"update without a voxel move: {held}")
+    return rep
+
+
+# ---------------------------------------------------------------- phase 12
+def run_slam_eval(torch, device):
+    """eval.slam_eval in-process: the warpsense run (fast mode: K1 level
+    and K2 on the card) and the featsense run, each ATE within twice the
+    JAX CLI's on the same arguments."""
+    from warpsense_tpu_torch.eval import slam_eval
+    out = {}
+    for name, args in SLAM_EVAL_ARGS.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = slam_eval.main(args + ["--device", str(device),
+                                       "--in-memory-map"])
+        torch.cuda.synchronize()
+        stats.update(seconds=time.perf_counter() - t0,
+                     launches=read_launches(),
+                     jax_ate_rmse_m=SLAM_EVAL_JAX_ATE_M[name])
+        out[name] = stats
+        log(f"[slam_eval {name}]", json.dumps(stats))
+        bound = 2 * SLAM_EVAL_JAX_ATE_M[name]
+        if not stats["ate_rmse_m"] <= bound:
+            raise AssertionError(f"slam_eval {name} ATE {stats['ate_rmse_m']}"
+                                 f" m > {bound} m")
+    launches = out["warpsense"]["launches"]
+    if min(launches["fusion"], launches["fields"]) == 0:
+        raise AssertionError(f"slam_eval warpsense did not launch K1 and K2: "
+                             f"{launches}")
+    if launches["fusion_general"] != 0:
+        raise AssertionError(f"slam_eval's level walk ran the general sweep: "
+                             f"{launches}")
+    out["launches"] = {k: sum(r["launches"][k] for r in out.values())
+                       for k in launches}
+    return out
+
+
 def phase(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -1064,9 +1302,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     feats = phase("featsense_app", run_featsense_app, torch, FEATSENSE,
                   device)
+    torch.cuda.empty_cache()
+    fast = phase("fastsense", run_fastsense, torch, FASTSENSE_APP, device)
+    torch.cuda.empty_cache()
+    evals = phase("slam_eval", run_slam_eval, torch, device)
     paths = {"fast_app": app["launches"], "tilt_app": tilt["launches"],
              "parity_app": parity["launches"],
-             "featsense_app": feats["launches"]}
+             "featsense_app": feats["launches"],
+             "fastsense": fast["launches"], "slam_eval": evals["launches"]}
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
                    "share_of_bound", "library_ms")

@@ -398,3 +398,113 @@ def test_featsense_app_on_cuda(cuda):
         assert np.all(np.isfinite(np.stack(poses)))
         assert np.linalg.norm(poses[-1][:3, 3] - truth[-1][:3, 3]) < 0.12
         assert (fusion_sweep_merge.launches > f0) == (fusion == "auto")
+
+
+FASTSENSE_CFG = {
+    "lidar": {"channels": 32, "hresolution": 256},
+    "map": {"max_distance": 0.96, "update_distance": 0.3,
+            "resolution": 128, "size": {"x": 12.0, "y": 12.0, "z": 6.0},
+            "shift": 3.0, "max_weight": 10},
+    "registration": {"max_iterations": 200, "epsilon": 0.03,
+                     "it_weight_gradient": 0.1}}
+
+
+def _fastsense_replay(device, n, *, replay=True, on_scan=None):
+    """FastsenseApp on tests/test_torch_fastsense.py's walk (0.1 m steps,
+    an orientation IMU sample before each scan)."""
+    from warpsense_tpu_torch.io.trajectory import _quat_from_mat
+    from warpsense_tpu_torch.pipeline.fastsense import FastsenseApp
+    from warpsense_tpu_torch.utils.imu import ImuSample
+    gt = walk_trajectory(n, step_m=0.1)
+    rng = np.random.default_rng(0)
+    app = FastsenseApp(Params.from_dict(FASTSENSE_CFG), capacity=8192,
+                       update_frequency=5, update_distance_m=0.25,
+                       in_memory_map=True, device=device)
+    poses = []
+    for i, p in enumerate(gt):
+        scan = render_scan(BoxWorld.default(), p, channels=32, columns=256,
+                           max_range=22.0, noise_std=0.01, rng=rng)
+        q = _quat_from_mat(gt[0][:3, :3].T @ p[:3, :3])
+        app.imu_callback(ImuSample(0.05 * i - 1e-3, np.zeros(3), q))
+        poses.append(app.cloud_callback(scan, 0.05 * i))
+        if on_scan is not None:
+            on_scan(app)
+        if replay:
+            app.sync()
+    app.terminate()
+    return app, np.stack(poses)
+
+
+def test_fastsense_on_cuda_matches_cpu(cuda):
+    """Four replayed scans on the card against the CPU run of the port:
+    K1's general sweep equals its plain version, but the parity GN sums in
+    another order on the card, and the GN is chaotic (ROADMAP C16), so the
+    bounds are tests/test_torch_fastsense.py's against JAX: the first three
+    scans within 0.1 mm and 1e-5 rad, the fourth within 60 mm."""
+    g0 = fusion_sweep_merge.general_launches
+    app, on_card = _fastsense_replay("cuda", 4)
+    assert fusion_sweep_merge.general_launches - g0 == app.updates_published
+    assert app.updates_published >= 2
+    _, on_cpu = _fastsense_replay("cpu", 4)
+    diff = np.abs(on_card[:, :3, 3] - on_cpu[:, :3, 3]).max(axis=1)
+    assert diff[:3].max() < 0.1 and diff.max() < 60.0, diff
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        r = a[:3, :3].astype(np.float64).T @ b[:3, :3].astype(np.float64)
+        assert np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1)) < 1e-5
+
+
+def test_fastsense_worker_stream_keeps_snapshots(cuda):
+    """Without sync(): the worker fuses on its own stream while the caller
+    registers; every (state, fields) snapshot the caller took stays
+    bit-unchanged by the updates published after it, and every job is
+    published before terminate returns."""
+    snaps = []
+
+    def take(app):
+        with app._snap_lock:
+            pair = (*app.state, *app._fields)
+        snaps.append((pair, [t.clone() for t in pair]))
+        assert app._worker_stream != torch.cuda.current_stream()
+    app, poses = _fastsense_replay("cuda", 6, replay=False, on_scan=take)
+    assert np.all(np.isfinite(poses))
+    assert app.updates_published == app._jobs_submitted + 1 >= 3
+    for pair, copy in snaps:
+        for t, c in zip(pair, copy):
+            assert torch.equal(t, c)
+    assert not torch.equal(snaps[0][0][1], snaps[-1][0][1])
+
+
+def test_fastsense_worker_clone_keeps_snapshots_without_a_move(cuda):
+    """Without sync() and with ``update_frequency=2``, scans from one pose
+    in the middle of the first voxel after the first (the gate fires on
+    scans 1, 3 and 5): every worker update fuses a clone on the worker's
+    stream (no shift), while the caller registers; every snapshot the
+    caller took stays bit-unchanged."""
+    from warpsense_tpu_torch.pipeline.fastsense import FastsenseApp
+    from warpsense_tpu_torch.utils.imu import ImuSample
+    app = FastsenseApp(Params.from_dict(FASTSENSE_CFG), capacity=8192,
+                       update_frequency=2, update_distance_m=0.25,
+                       in_memory_map=True, device="cuda", profile=True)
+    start = walk_trajectory(1, step_m=0.1)[0]
+    held = start.copy()
+    held[:3, 3] += start[:3, :3] @ np.full(3, 0.064)   # half a voxel
+    rng = np.random.default_rng(1)
+    snaps = []
+    for i, pose in enumerate([start] + [held] * 6):
+        scan = render_scan(BoxWorld.default(), pose, channels=32,
+                           columns=256, max_range=22.0, noise_std=0.01,
+                           rng=rng)
+        app.imu_callback(ImuSample(0.05 * i - 1e-3, np.zeros(3),
+                                   np.array([0.0, 0.0, 0.0, 1.0])))
+        app.cloud_callback(scan, 0.05 * i)
+        with app._snap_lock:
+            pair = (*app.state, *app._fields)
+        snaps.append((pair, [t.clone() for t in pair]))
+    app.terminate()
+    assert app.updates_published == app._jobs_submitted + 1 == 4
+    assert [sorted(u) for u in app.update_ms[1:]] == [
+        ["clone", "fields", "fusion"]] * 3, app.update_ms
+    for pair, copy in snaps:
+        for t, c in zip(pair, copy):
+            assert torch.equal(t, c)
+    assert not torch.equal(snaps[0][0][1], snaps[-1][0][1])

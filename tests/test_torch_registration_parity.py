@@ -185,3 +185,34 @@ def test_register_cloud_from_state_and_empty_cloud(scene):
                                jnp.asarray(pose), **kw)
     np.testing.assert_array_equal(got.numpy(), pose)
     np.testing.assert_array_equal(np.asarray(want), pose)
+
+
+def test_register_cloud_fields_reports_its_iterations(scene, monkeypatch):
+    """With ``return_iterations`` the GN loop also returns how many times it
+    evaluated the statistics (FastsenseApp's ``gn_iterations``): the same
+    pose, and the count of ``jacobian_stats_fields`` calls; an empty
+    system stops after one."""
+    _, tst, _, cloud = scene
+    tf = treg.precompute_fields(tst)
+    pose = torch.as_tensor(_perturbation(1))
+    kw = dict(size=SIZE, resolution=RES, max_iterations=200,
+              it_weight_gradient=0.1, epsilon=0.03)
+    plain = treg.register_cloud_fields(
+        tf, tst.pos, tst.offset, torch.as_tensor(cloud),
+        torch.as_tensor(_mask(len(cloud))), pose, **kw)
+    calls = []
+    stats = treg.jacobian_stats_fields
+    monkeypatch.setattr(treg, "jacobian_stats_fields",
+                        lambda *a, **k: calls.append(1) or stats(*a, **k))
+    for mask, moved in ((_mask(len(cloud)), True),
+                        (np.zeros(len(cloud), bool), False)):
+        calls.clear()
+        got, n = treg.register_cloud_fields(
+            tf, tst.pos, tst.offset, torch.as_tensor(cloud),
+            torch.as_tensor(mask), pose, return_iterations=True, **kw)
+        assert n == len(calls)
+        if moved:
+            np.testing.assert_array_equal(got.numpy(), plain.numpy())
+            assert 1 < n < kw["max_iterations"]
+        else:
+            assert n == 1

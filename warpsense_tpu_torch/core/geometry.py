@@ -161,16 +161,35 @@ def to_map(pose_mm: torch.Tensor, resolution: int) -> torch.Tensor:
     return torch.floor(pose_mm[:3, 3] / resolution).to(torch.int32)
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded sqrt of float32 (PyTorch's CPU float32 sqrt is
+    not): float64 sqrt rounded once more is exact for float32 inputs."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def _norm4_fma(q: torch.Tensor) -> torch.Tensor:
+    """|q| of a float32 4-vector as XLA:CPU evaluates ``jnp.linalg.norm``:
+    a chain of fused multiply-adds, each emulated in float64 (a float32
+    product is exact there) and rounded to float32 once."""
+    s = q[0] * q[0]
+    for i in (1, 2, 3):
+        qi = q[i].to(torch.float64)
+        s = (qi * qi + s.to(torch.float64)).to(q.dtype)
+    return _sqrt_rn(s)
+
+
 def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     """3x3 rotation matrix -> unit quaternion (x, y, z, w); picks the best
-    conditioned of the four constructions like the JAX function."""
+    conditioned of the four constructions like the JAX function, with its
+    float32 roundings (a correctly rounded sqrt; the norm as XLA:CPU
+    computes it), so a float32 rotation gives JAX's bits."""
     m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
     m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
     m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
     tr = m00 + m11 + m22
     qw = torch.stack([1 + tr, 1 + m00 - m11 - m22, 1 - m00 + m11 - m22,
                       1 - m00 - m11 + m22])
-    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) / 2.0
+    qw = _sqrt_rn(torch.clamp(qw, min=1e-12)) / 2.0
     idx = int(torch.argmax(torch.stack([tr, m00, m11, m22])))
     s = 4 * qw[idx]
     if idx == 0:
@@ -185,4 +204,4 @@ def mat_to_quat(R: torch.Tensor) -> torch.Tensor:
     else:
         q = torch.stack([(m02 + m20) / s, (m12 + m21) / s, qw[3],
                          (m10 - m01) / s])
-    return q / torch.sqrt(torch.sum(q * q))
+    return q / _norm4_fma(q)

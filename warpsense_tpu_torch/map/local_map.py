@@ -165,6 +165,31 @@ class LocalMap:
         self._dev.weight[ix] = torch.as_tensor(np.asarray(w, np.int16),
                                                device=device)
 
+    # ------------------------------------------- host cell access (twins)
+    def _coords(self, p: np.ndarray) -> np.ndarray:
+        return (p - self.state.pos + self.state.offset) % np.asarray(self.size)
+
+    def _in_bounds(self, p: np.ndarray) -> bool:
+        return bool(np.all(np.abs(p - self.state.pos)
+                           <= np.asarray(self.size) // 2))
+
+    def value_at(self, p) -> tuple[int, int]:
+        """(value, weight) of the host mirror at global voxel ``p``."""
+        p = np.asarray(p, dtype=np.int64)
+        if not self._in_bounds(p):
+            raise IndexError(f"index out of local-map bounds: {p.tolist()}")
+        a = self._coords(p)
+        return (int(self.state.value[a[0], a[1], a[2]]),
+                int(self.state.weight[a[0], a[1], a[2]]))
+
+    def set_value_at(self, p, value: int, weight: int) -> None:
+        p = np.asarray(p, dtype=np.int64)
+        if not self._in_bounds(p):
+            raise IndexError(f"index out of local-map bounds: {p.tolist()}")
+        a = self._coords(p)
+        self.state.value[a[0], a[1], a[2]] = np.int16(value)
+        self.state.weight[a[0], a[1], a[2]] = np.int16(weight)
+
     # ------------------------------------------------------------------- shift
     def _area_array_index(self, start: np.ndarray, end: np.ndarray):
         """np.ix_ index of array coords covering the inclusive global box."""

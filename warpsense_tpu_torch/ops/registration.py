@@ -120,19 +120,21 @@ def register_cloud(state: LocalMapState, points, mask, pretransform, *,
 def register_cloud_fields(fields: RegistrationFields, pos, offset, points,
                           mask, pretransform, *, size, resolution: int,
                           max_iterations: int, it_weight_gradient: float,
-                          epsilon: float, mode: str = "parity"
-                          ) -> torch.Tensor:
+                          epsilon: float, mode: str = "parity",
+                          return_iterations: bool = False):
     """GN registration against cached ``precompute_fields`` output.
 
     ``mode="parity"``: the reference's scheme — un-normalized voxel
     gradient and the rotation centered on the INITIAL translation;
     ``"fast"``: resolution-normalized gradient and per-iteration
-    recentering.  Both are the JAX function's semantics."""
-    return _gn_loop(fields, pos, offset, points, mask, pretransform,
-                    size=size, resolution=resolution,
-                    max_iterations=max_iterations,
-                    it_weight_gradient=it_weight_gradient, epsilon=epsilon,
-                    mode=mode)
+    recentering.  Both are the JAX function's semantics.  Returns the pose
+    (4x4 float32 on ``pretransform``'s device); with ``return_iterations``,
+    ``(pose, iterations)``, the count of statistics evaluations."""
+    pose, iterations = _gn_loop(
+        fields, pos, offset, points, mask, pretransform, size=size,
+        resolution=resolution, max_iterations=max_iterations,
+        it_weight_gradient=it_weight_gradient, epsilon=epsilon, mode=mode)
+    return (pose, iterations) if return_iterations else pose
 
 
 def _gn_loop(fields, pos, offset, points, mask, pretransform, *, size,
@@ -154,7 +156,9 @@ def _gn_loop(fields, pos, offset, points, mask, pretransform, *, size,
     itw = torch.tensor(it_weight_gradient, dtype=f32)
     eps = torch.tensor(epsilon, dtype=f32)
     prev = torch.zeros(4, dtype=f32)
+    iterations = 0
     for _ in range(max_iterations):
+        iterations += 1
         H, g, e, c = _host_stats(*jacobian_stats_fields(
             fields, pos, offset, points, mask, total.to(device), size=size,
             resolution=resolution, normalize_gradient=fast))
@@ -173,7 +177,7 @@ def _gn_loop(fields, pos, offset, points, mask, pretransform, *, size,
         alpha = alpha + itw
         if finished:
             break
-    return total.to(device)
+    return total.to(device), iterations
 
 
 class PackedFields(NamedTuple):

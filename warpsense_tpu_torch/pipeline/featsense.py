@@ -27,11 +27,11 @@ import numpy as np
 import torch
 
 from ..core.config import Params
-from ..core.geometry import mat_to_quat
 from ..frontends.featsense.features import extract_features
 from ..frontends.featsense.features_reference import FeatureParams
 from ..frontends.featsense.odometry import OdomEstimation, voxel_downsample
 from ..frontends.featsense.vgicp import vgicp_align
+from ..io.trajectory import _mat_from_quat, _quat_from_mat
 from ..map.global_map import GlobalMap
 from ..map.local_map import LocalMap
 from ..obs.profiler import RuntimeEvaluator
@@ -39,12 +39,6 @@ from ..ops.tsdf import plan_raymarch
 from ..utils.device import resolve_device
 from ..utils.ring_buffer import ConcurrentRingBuffer
 from .fusion_backend import fuse_cloud
-from .warpsense import _mat_from_quat
-
-
-def _quat(R: np.ndarray) -> np.ndarray:
-    """(x, y, z, w) of a rotation matrix, through the float32 geometry."""
-    return mat_to_quat(torch.as_tensor(np.asarray(R, np.float32))).numpy()
 
 
 def _sync(device: torch.device) -> None:
@@ -214,7 +208,7 @@ class FeatsenseMapping:
 
         pose_mm = self._to_mm(gicp_pose)
         # poses persist in METERS, like the warpsense pipeline
-        self.global_map.write_pose(pose_mm[:3, 3], _quat(gicp_pose[:3, :3]),
+        self.global_map.write_pose(pose_mm[:3, 3], _quat_from_mat(gicp_pose[:3, :3]),
                                    scale=1000.0)
         self.gicp_path.append(gicp_pose.copy())
         self._maybe_shift(pose_mm)
@@ -377,8 +371,9 @@ class ThreadedFeatsenseRunner:
                 pose = np.asarray(pose)
                 self.path.append((stamp, pose.copy()))
                 if fh is not None:
+                    q = _quat_from_mat(pose[:3, :3])
                     fh.write("%.6f %.6f %.6f %.6f %.6f %.6f %.6f %.6f\n"
-                             % (stamp, *pose[:3, 3], *_quat(pose[:3, :3])))
+                             % (stamp, *pose[:3, 3], *q))
         finally:
             if fh is not None:
                 fh.close()

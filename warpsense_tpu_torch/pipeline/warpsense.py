@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..core.config import Params
-from ..core.geometry import mat_to_quat, to_int_mat, transform_point_fixed
+from ..core.geometry import to_int_mat, transform_point_fixed
+from ..io.trajectory import _mat_from_quat, _quat_from_mat
 from ..map.global_map import GlobalMap
 from ..map.local_map import LocalMap, clone_state
 from ..obs.profiler import RuntimeEvaluator
@@ -44,15 +45,6 @@ from ..utils.ring_buffer import ConcurrentRingBuffer
 from .fusion_backend import fuse_cloud
 
 
-def _mat_from_quat(q: np.ndarray) -> np.ndarray:
-    x, y, z, w = q
-    return np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-    ])
-
-
 class WarpsenseApp:
     """Single-GPU warpsense loop fed by ``cloud_callback``/``imu_callback``.
 
@@ -66,7 +58,9 @@ class WarpsenseApp:
     ``sync_shift=True`` shifts the window at the triggering scan instead
     of on a worker thread (bitwise-reproducible runs; parity mode always
     shifts synchronously).  ``resume=True`` reopens the map file and
-    continues from its last pose.
+    continues from its last pose.  ``monitor``: an optional
+    ``obs.live.LiveMonitor`` that receives the pose and a copy of the map
+    after each scan, and each window shift before it happens.
     """
 
     def __init__(self, params: Params, map_path: str | Path | None = None,
@@ -76,7 +70,7 @@ class WarpsenseApp:
                  force_odd: bool = True,
                  window_size: tuple[int, int, int] | None = None,
                  sync_shift: bool = False, device="cuda",
-                 in_memory_map: bool = False):
+                 in_memory_map: bool = False, monitor=None):
         if params.registration.mode not in ("fast", "parity"):
             raise ValueError(
                 f"unknown registration.mode {params.registration.mode!r}")
@@ -85,6 +79,7 @@ class WarpsenseApp:
         self._sync_shift = bool(sync_shift)
         self.capacity = int(capacity)
         self.profile = profile
+        self.monitor = monitor
         self.fusion = fusion
         self.exact_fields = exact_fields
         self._fields = None      # cached registration fields (per map epoch)
@@ -250,11 +245,17 @@ class WarpsenseApp:
         self.path.append(self.pose.copy())
         self.global_map.write_pose(
             self.pose[:3, 3],
-            mat_to_quat(torch.as_tensor(self.pose[:3, :3])).numpy(),
+            _quat_from_mat(self.pose[:3, :3]),
             scale=1000.0)
         self._maybe_shift(prof)
         if prof:
             prof.stop("total")
+        if self.monitor is not None:
+            # the reference's per-scan TF/path publish and marker cloud
+            # (app.cpp:150-170, publish.h:11-93)
+            self.monitor.publish_pose(stamp, self.pose)
+            self.monitor.publish_map(self.state, resolution=m.resolution,
+                                     tau=m.tau)
         return self.pose.copy()
 
     # -------------------------------------------------------------- internals
@@ -354,6 +355,8 @@ class WarpsenseApp:
         self._pre_shift_pose = self.last_shift_pose
         self.last_shift_pose = self.pose.copy()
         new_pos = np.floor(self.pose[:3, 3] / m.resolution).astype(np.int64)
+        if self.monitor is not None:
+            self.monitor.publish_shift(new_pos)   # the skeleton publish
         if self.params.registration.mode != "fast" or self._sync_shift:
             if prof:
                 prof.start("shift")
