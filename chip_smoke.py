@@ -68,7 +68,20 @@ Phases (each raises on failure; nothing falls back to the CPU):
 12. eval.slam_eval in-process at its defaults with --device cuda
    --in-memory-map: warpsense (20 frames, fast mode: K1's level sweep and
    K2 launched) and featsense (10 frames), each ATE at most twice the JAX
-   CLI's on the same arguments.
+   CLI's on the same arguments;
+13. the multi-GPU layer (SHARDED): ShardedWarpsenseApp at APP's settings
+   on APP's walk as two spawned ranks on the one card over gloo (NCCL
+   refuses two ranks on one device), the window 626 x 625 x 235 (313 x-rows
+   a rank): the same pose on every rank after every scan, ATE below APP's
+   bound, K1 launched on every rank once per fused scan and K2 launched; a
+   one-scan sharded fusion and the sharded fields of the app's map,
+   gathered, equal to the single-GPU kernels' (0 mismatches); each rank's
+   spans, peak memory and its gloo staging (halo exchange, statistics
+   sum); then an NCCL group of one rank for one scan;
+14. utils.device_query --bandwidth (one JSON line per card);
+15. eval.feature_compare on the card on one synthetic 128 x 1024 scan: the
+   device picks within 1% of the host twin's (Jaccard at least 0.99), with
+   the F-LOAM twin's counts.
 
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
@@ -209,6 +222,18 @@ SLAM_EVAL_ARGS = {
                   "128", "--columns", "1024"],
     "featsense": ["--pipeline", "featsense", "--frames", "10"]}
 SLAM_EVAL_JAX_ATE_M = {"warpsense": 0.0039, "featsense": 0.0063}
+# the multi-GPU layer: ShardedWarpsenseApp at APP's settings on APP's walk,
+# two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device), so FULL's x extent 625 rounds up to 626 (313 rows a rank) and
+# the shift is synchronous; then an NCCL group of one rank for one scan.
+# Held to APP's ATE bound, equal poses on every rank, and the gathered
+# one-scan fusion and fields equal to the single-GPU kernels' bits.
+SHARDED = dict(APP, size=(626, 625, 235), world=2, backend="gloo",
+               device="cuda:0", join_timeout_s=600, nccl_scans=1)
+# feature_compare on one synthetic 128 x 1024 scan, with capacities above
+# the scan's feature counts so the device sets are not cut
+FEATURE_COMPARE = dict(channels=128, columns=1024, edge_capacity=4096,
+                       surf_capacity=32768)
 # K2's seeded windows: full-range int16 values, weights nonzero with this
 # probability (on every face too), checked at these taus
 FIELDS_SEED = 7
@@ -257,10 +282,22 @@ def record_card(torch) -> dict:
 
 # ----------------------------------------------------------------- phase 2
 def build_kernels() -> dict:
+    """nvcc for each kernel source and g++ for the native runtime, all
+    started together, then loaded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from warpsense_tpu_torch import native
     from warpsense_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    for name in ("fusion", "fields"):
+    names = ("fusion", "fields")
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        jobs = [pool.submit(_build._build, name) for name in names]
+        jobs.append(pool.submit(native.build))
+        for job in jobs:
+            job.result()
+    for name in names:
         _build.load(name)
+    native.load()
     secs = time.perf_counter() - t0
     log(f"[build] {secs:.2f} s total; per source:",
         json.dumps(_build.build_seconds))
@@ -1248,6 +1285,259 @@ def run_slam_eval(torch, device):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+def _sharded_rank(rank, world, backend, store, out_dir, cfg):
+    """One rank of the SHARDED phase (a spawned process)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.map.local_map import LocalMapState, create_state
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.ops.preprocess import preprocess
+    from warpsense_tpu_torch.ops.tsdf_projective import \
+        tsdf_update_projective
+    from warpsense_tpu_torch.parallel import sharded as sh
+    from warpsense_tpu_torch.parallel.distributed import gather_state
+    from warpsense_tpu_torch.pipeline.warpsense_sharded import \
+        ShardedWarpsenseApp
+
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    if cuda:
+        torch.cuda.set_device(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = sh.make_mesh(device)
+        _, scans = app_scans(cfg)
+        params = app_params(cfg)
+        app = ShardedWarpsenseApp(params, mesh=mesh, in_memory_map=True,
+                                  capacity=cfg["capacity"],
+                                  window_size=cfg["size"], profile=True)
+        fused = []
+        update = app._update_tsdf
+
+        def counted(*a, **k):
+            fused.append(len(poses))
+            return update(*a, **k)
+        app._update_tsdf = counted
+        ev = RuntimeEvaluator.get_instance()
+        ev.clear()
+        poses, scan_ms = [], []
+        reset_launches()
+        for i, scan in enumerate(scans):
+            t0 = time.perf_counter()
+            poses.append(app.cloud_callback(scan, 0.1 * i))
+            sync()
+            scan_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        stages = {r["task"]: r["avg"] / 1000.0 for r in ev.to_rows()}
+        out = dict(rank=rank, world=world, backend=backend,
+                   poses=np.stack(poses).tolist(), scan_ms=scan_ms,
+                   fused_scans=fused, launches=launches,
+                   stage_avg_ms=stages, peak_bytes=peak,
+                   slab=list(sh.slab_rows(mesh, cfg["size"][0])),
+                   window_pos=app.state.pos.cpu().tolist())
+        if world > 1:
+            # the sharded fields of the app's map, gathered, against
+            # the single-GPU kernel on the gathered window
+            f = sh.precompute_fields_packed_sharded(app.state, mesh=mesh,
+                                                    tau=600)
+            planes = sh.gather_rows(f.plane, mesh)
+            full = gather_state(app.state, mesh)
+            del f
+            if rank == 0:
+                whole = LocalMapState(
+                    *(torch.as_tensor(x, device=device) for x in full))
+                one = fields_packed(whole, tau=600).plane.cpu()
+                out["fields_mismatches"] = int((one != planes).sum())
+                out["fields_weighted_voxels"] = int(
+                    (whole.weight != 0).sum())
+                del whole, one
+            del planes, full
+            # one fusion of the first scan from a fresh window, gathered,
+            # against the single-GPU K1 fusion of the same scan
+            cloud = torch.as_tensor(
+                scans[0].reshape(-1, 3)[:cfg["capacity"]], device=device)
+            valid = torch.any(cloud != 0, dim=1)
+            pts, mask = preprocess(cloud, valid, torch.eye(4, device=device),
+                                   resolution=cfg["res"],
+                                   capacity=cfg["capacity"], snap=False)
+            kw = dict(size=cfg["size"], tau=600, max_weight=32 * 64,
+                      resolution=cfg["res"], channels=cfg["channels"],
+                      columns=cfg["columns"], vfov_deg=45.0, level=True)
+            zero = torch.zeros(3, dtype=torch.int32, device=device)
+            fresh = create_state(cfg["size"], 600, 0, force_odd=False)
+            st = sh.tsdf_update_projective_sharded(
+                sh.shard_state(fresh, mesh), pts, mask, zero,
+                torch.eye(3), mesh=mesh, **kw)
+            full = gather_state(st, mesh)
+            if rank == 0:
+                one = tsdf_update_projective(
+                    LocalMapState(*(torch.as_tensor(x, device=device)
+                                    for x in fresh)),
+                    pts, mask, zero, torch.eye(3), **kw)
+                out["fusion_mismatches"] = int(
+                    (one.value.cpu().numpy() != full.value).sum()
+                    + (one.weight.cpu().numpy() != full.weight).sum())
+                out["fusion_weighted_voxels"] = int(
+                    (full.weight != 0).sum())
+                del one
+            del st, full
+            # the gloo staging on one card: the halo exchange of one
+            # padded slab (4 planes through host memory) and one
+            # statistics sum (44 floats), host clock after a sync
+            halo, stats = [], []
+            flat = torch.ones(44, device=device)
+            for _ in range(7):
+                sync()
+                t0 = time.perf_counter()
+                sh._padded(app.state, mesh)
+                sync()
+                halo.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                sh.sum_in_rank_order(mesh, flat)
+                stats.append((time.perf_counter() - t0) * 1e3)
+            out["halo_ms"] = sorted(halo)[3]
+            out["stats_ms"] = sorted(stats)[3]
+        app.terminate()
+        with open(Path(out_dir) / f"sharded_{backend}_{rank}.json",
+                  "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(world, backend, cfg, out_dir):
+    """Run ``_sharded_rank`` on ``world`` spawned processes on the card;
+    returns their reports in rank order.  The ranks are killed if they
+    do not finish within the phase's timeout."""
+    import torch.multiprocessing as mp
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    store = out_dir / f"sharded_{backend}.store"
+    if store.exists():
+        store.unlink()
+    ctx = mp.start_processes(
+        _sharded_rank, args=(world, backend, str(store), str(out_dir), cfg),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + cfg["join_timeout_s"]
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} {backend} ranks did not finish "
+                                   f"in {cfg['join_timeout_s']} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    reps = []
+    for r in range(world):
+        with open(out_dir / f"sharded_{backend}_{r}.json") as fh:
+            reps.append(json.load(fh))
+    return reps
+
+
+def run_sharded(torch, cfg):
+    """ShardedWarpsenseApp over two gloo ranks on the card, then an NCCL
+    group of one rank for ``nccl_scans`` scans."""
+    import numpy as np
+    out_dir = ROOT / "chiprun_out" / "sharded"
+    ranks = _spawn_ranks(cfg["world"], cfg["backend"], cfg, out_dir)
+    gt, _ = app_scans(cfg)
+    poses = [np.asarray(r["poses"], np.float32) for r in ranks]
+    equal = all(np.array_equal(poses[0], p) for p in poses[1:])
+    rep = dict(
+        world=cfg["world"], backend=cfg["backend"], size=cfg["size"],
+        ranks=[{k: r[k] for k in (
+            "rank", "slab", "launches", "fused_scans", "scan_ms",
+            "stage_avg_ms", "peak_bytes", "window_pos", "halo_ms",
+            "stats_ms")} for r in ranks],
+        poses_equal_every_scan=equal, ate_m=ate_m(poses[0], gt),
+        fusion_mismatches=ranks[0]["fusion_mismatches"],
+        fusion_weighted_voxels=ranks[0]["fusion_weighted_voxels"],
+        fields_mismatches=ranks[0]["fields_mismatches"],
+        fields_weighted_voxels=ranks[0]["fields_weighted_voxels"])
+    log("[sharded]", json.dumps(rep))
+    nccl = _spawn_ranks(1, "nccl", dict(cfg, scans=cfg["nccl_scans"]),
+                        out_dir)[0]
+    log("[sharded nccl]", json.dumps({k: nccl[k] for k in (
+        "world", "backend", "launches", "fused_scans", "scan_ms", "poses",
+        "peak_bytes")}))
+    if not equal:
+        raise AssertionError("the ranks' poses differ")
+    if not rep["ate_m"] < cfg["ate_bound_m"]:
+        raise AssertionError(f"sharded ATE {rep['ate_m']:.4f} m >= "
+                             f"{cfg['ate_bound_m']} m")
+    if rep["fusion_mismatches"] or rep["fields_mismatches"]:
+        raise AssertionError(f"sharded K1/K2 differ from the single-GPU "
+                             f"kernels: {rep}")
+    if min(rep["fusion_weighted_voxels"], rep["fields_weighted_voxels"]) \
+            < 100_000:
+        raise AssertionError(f"the sharded checks fused too little: {rep}")
+    for r in ranks + [nccl]:
+        if r["launches"]["fusion"] != len(r["fused_scans"]) or not \
+                r["fused_scans"] or r["launches"]["fields"] == 0:
+            raise AssertionError(f"rank {r['rank']} ({r['backend']}): K1 "
+                                 f"not launched once per fused scan, or "
+                                 f"K2 not launched: {r['launches']}, fused "
+                                 f"{r['fused_scans']}")
+    if not np.all(np.isfinite(np.asarray(nccl["poses"]))):
+        raise AssertionError("non-finite pose in the NCCL run")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in
+                ranks[0]["launches"]}
+    return dict(rep, launches=launches, nccl_launches=nccl["launches"])
+
+
+# ---------------------------------------------------------------- phase 14
+def run_device_query(torch):
+    """utils.device_query with --bandwidth, one JSON line per card."""
+    from warpsense_tpu_torch.utils import device_query
+    infos = device_query.main(["--bandwidth"])
+    if len(infos) != torch.cuda.device_count() or not all(
+            i["copy_gbps"] > 0 for i in infos):
+        raise AssertionError(f"device_query: {infos}")
+    return infos
+
+
+# ---------------------------------------------------------------- phase 15
+def run_feature_compare(torch, device, cfg):
+    """eval.feature_compare on the card on one synthetic scan: the device
+    picks equal to the host twin's, and the F-LOAM counts."""
+    from warpsense_tpu_torch.eval import feature_compare
+    reset_launches()
+    rep = feature_compare.run(
+        feature_compare.synthetic_scan(cfg["channels"], cfg["columns"]),
+        edge_capacity=cfg["edge_capacity"],
+        surf_capacity=cfg["surf_capacity"], device=device)
+    log("[feature_compare]", json.dumps(rep))
+    # the float32 feature stage and its float64 host twin break a few
+    # curvature near-ties apart: on this scan 15,027 surfs against the
+    # twin's 15,026 (Jaccard 0.9991), on the card and on the CPU alike
+    # (tools/feature_card_vs_cpu.py: no bit of curvature, range,
+    # occlusion or pick differs between them); so the check holds the
+    # stage to 1% of the twin
+    for group in ("edges", "surfs"):
+        g = rep[group]
+        if g["device"] >= cfg[f"{group[:-1]}_capacity"] or not (
+                abs(g["device"] - g["host"]) <= 0.01 * g["host"]
+                and g["host"] > 0 and g["jaccard"] >= 0.99
+                and g["floam"] > 0):
+            raise AssertionError(f"feature_compare {group}: {g}")
+    return rep
+
+
 def phase(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -1306,10 +1596,17 @@ def main() -> int:
     fast = phase("fastsense", run_fastsense, torch, FASTSENSE_APP, device)
     torch.cuda.empty_cache()
     evals = phase("slam_eval", run_slam_eval, torch, device)
+    torch.cuda.empty_cache()
+    sharded = phase("sharded", run_sharded, torch, SHARDED)
+    phase("device_query", run_device_query, torch)
+    phase("feature_compare", run_feature_compare, torch, device,
+          FEATURE_COMPARE)
     paths = {"fast_app": app["launches"], "tilt_app": tilt["launches"],
              "parity_app": parity["launches"],
              "featsense_app": feats["launches"],
-             "fastsense": fast["launches"], "slam_eval": evals["launches"]}
+             "fastsense": fast["launches"], "slam_eval": evals["launches"],
+             "sharded": sharded["launches"],
+             "sharded_nccl": sharded["nccl_launches"]}
 
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by",
                    "share_of_bound", "library_ms")

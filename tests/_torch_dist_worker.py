@@ -1,0 +1,298 @@
+"""Rank processes of the port's multi-GPU layer for the CPU tests.
+
+``launch`` spawns a gloo group of CPU ranks (``torch.multiprocessing``,
+spawn), rendezvous through a ``FileStore`` in the test's tmp_path, runs one
+of the ``run_*`` functions below on every rank and waits for them with a
+timeout, after which it kills the ranks and fails the test.  Each rank
+writes ``<name>_<rank>.npz``.  Nothing here imports JAX: the test process
+runs the JAX functions and compares.
+"""
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from warpsense_tpu_torch.core.consts import MATRIX_RESOLUTION, \
+    WEIGHT_RESOLUTION
+from warpsense_tpu_torch.map.local_map import create_state
+
+TAU, RES = 600, 64
+SIZE = (80, 41, 41)            # X divisible by 2, 4 and 8 ranks
+CH, COLS = 32, 128
+JOIN_TIMEOUT_S = 180.0
+
+
+# ------------------------------------------------------------------ inputs
+
+def raymarch_cloud(n=4000, half=1200.0, seed=3):
+    """tests/test_sharded.py's box room (int32 mm)."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for ax in range(3):
+        for s in (-1, 1):
+            p = rng.uniform(-half, half, size=(n // 6, 3))
+            p[:, ax] = s * half
+            pts.append(p)
+    return np.round(np.concatenate(pts)).astype(np.int32)
+
+
+def flat_room_cloud(n=4002, half=1200.0, zhalf=400.0, seed=7):
+    """tests/test_sharded_fast.py's flat room (int32 mm)."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for ax in range(3):
+        for s in (-1, 1):
+            p = np.stack([rng.uniform(-half, half, n // 6),
+                          rng.uniform(-half, half, n // 6),
+                          rng.uniform(-zhalf, zhalf, n // 6)], axis=1)
+            p[:, ax] = s * (zhalf if ax == 2 else half)
+            pts.append(p)
+    return np.round(np.concatenate(pts)).astype(np.int32)
+
+
+def tilt(deg):
+    a = np.radians(deg)
+    return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                     [-np.sin(a), 0, np.cos(a)]], np.float32)
+
+
+def perturbation(t, yaw_deg):
+    pert = np.eye(4, dtype=np.float32)
+    pert[:3, 3] = t
+    th = np.deg2rad(yaw_deg)
+    pert[:3, :3] = np.array([[np.cos(th), -np.sin(th), 0],
+                             [np.sin(th), np.cos(th), 0], [0, 0, 1]],
+                            np.float32)
+    return pert
+
+
+PROJ_KW = dict(size=SIZE, tau=TAU, max_weight=32 * WEIGHT_RESOLUTION,
+               resolution=RES, channels=CH, columns=COLS, vfov_deg=45.0)
+PARITY_REG_KW = dict(size=SIZE, resolution=RES, max_iterations=60,
+                     it_weight_gradient=0.1, epsilon=0.0)
+PACKED_REG_KW = dict(size=SIZE, resolution=RES, tau=TAU, max_iterations=50,
+                     epsilon=0.03)
+PERT = perturbation([90, -60, 40], 0.7)
+PERT_FREEZE = perturbation([70, -50, 30], 0.0)
+
+
+def rot_err(a, b) -> float:
+    """Angle (rad) of a^T b from its skew part, in float64 (arccos of the
+    trace loses ~sqrt(eps) near the identity)."""
+    m = a[:3, :3].astype(np.float64).T @ b[:3, :3].astype(np.float64)
+    v = np.array([m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]])
+    return float(np.arcsin(min(1.0, np.linalg.norm(v) / 2.0)))
+
+
+def assert_pose_close(got, want, mm=0.5, rad=1e-4) -> None:
+    """The port's registration tolerance: 0.5 mm and 1e-4 rad."""
+    assert np.max(np.abs(got[:3, 3] - want[:3, 3])) <= mm, (got, want)
+    assert rot_err(got, want) <= rad, (rot_err(got, want), got, want)
+
+
+# ----------------------------------------------------------------- ranks
+
+def run_ops(mesh) -> dict:
+    """Every sharded op once on this rank; gathered windows, planes and
+    poses."""
+    from warpsense_tpu_torch.ops.tsdf import plan_raymarch
+    from warpsense_tpu_torch.parallel import sharded as sh
+    from warpsense_tpu_torch.parallel.distributed import (gather_state,
+                                                          run_demo)
+
+    out = {}
+
+    def fresh():
+        return sh.shard_state(create_state(SIZE, TAU, 0, force_odd=False),
+                              mesh)
+
+    def keep(name, state):
+        full = gather_state(state, mesh)
+        out[name + "_value"], out[name + "_weight"] = full.value, full.weight
+
+    ms, mi = plan_raymarch(TAU, RES, 4000)
+    pts = torch.as_tensor(raymarch_cloud())
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    zero = torch.zeros(3, dtype=torch.int32)
+    up = torch.tensor([0, 0, MATRIX_RESOLUTION], dtype=torch.int32)
+    ray = sh.tsdf_update_sharded(
+        fresh(), pts, mask, zero, up, mesh=mesh, size=SIZE, tau=TAU,
+        max_weight=32 * WEIGHT_RESOLUTION, resolution=RES, max_steps=ms,
+        max_isteps=mi)
+    keep("ray", ray)
+    out["parity_pose"] = sh.register_cloud_sharded(
+        ray, pts, mask, torch.as_tensor(PERT), mesh=mesh,
+        **PARITY_REG_KW).numpy()
+
+    pts = torch.as_tensor(flat_room_cloud())
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    eye = torch.eye(3, dtype=torch.float32)
+    level = sh.tsdf_update_projective_sharded(
+        fresh(), pts, mask, zero, eye, mesh=mesh, level=True, **PROJ_KW)
+    keep("level", level)
+    f = sh.precompute_fields_packed_sharded(level, mesh=mesh, tau=TAU)
+    out["packed"] = sh.gather_rows(f.plane, mesh).numpy()
+    f2 = sh.precompute_fields_packed_sharded(level, mesh=mesh, tau=TAU,
+                                             exact=True)
+    out["exact_a"] = sh.gather_rows(f2.plane_a, mesh).numpy()
+    out["exact_b"] = sh.gather_rows(f2.plane_b, mesh).numpy()
+    pose, iters, err = sh.register_cloud_packed_sharded(
+        f, level.pos, level.offset, pts, mask, torch.as_tensor(PERT),
+        mesh=mesh, **PACKED_REG_KW)
+    out["packed_pose"], out["packed_iters"] = pose.numpy(), iters
+    pose, _, _ = sh.register_cloud_packed_sharded(
+        f, level.pos, level.offset, pts, mask, torch.as_tensor(PERT_FREEZE),
+        mesh=mesh, gather_freeze=True, **PACKED_REG_KW)
+    out["freeze_pose"] = pose.numpy()
+    # a second fusion from a moved origin runs the merge
+    sh.tsdf_update_projective_sharded(
+        level, pts, mask, zero + 2, eye, mesh=mesh, level=True, **PROJ_KW)
+    keep("level2", level)
+    tilted = sh.tsdf_update_projective_sharded(
+        fresh(), pts, mask, zero, torch.as_tensor(tilt(4.0)), mesh=mesh,
+        level=False, **PROJ_KW)
+    keep("tilt", tilted)
+
+    report, full, pose = run_demo(mesh, SIZE)
+    out["demo_value"], out["demo_weight"] = full.value, full.weight
+    out["demo_pose"] = pose
+    out["demo_slab"] = np.asarray(report["slab"])
+    return out
+
+
+WINDOW = (160, 101, 41)       # tests/test_sharded_app.py's window
+APP_CH, APP_COLS = 32, 512
+
+
+def app_config(shift=8.0) -> dict:
+    """tests/test_sharded_app.py's fast-mode configuration."""
+    return {
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 20, "y": 12, "z": 5}, "shift": shift,
+                "update_distance": 0.08},
+        "registration": {"max_iterations": 60, "epsilon": 0.0,
+                         "it_weight_gradient": 0.1, "mode": "fast"},
+        "lidar": {"channels": APP_CH, "hresolution": APP_COLS},
+    }
+
+
+def featsense_config(shift=8.0) -> dict:
+    """tests/test_featsense_sharded.py's configuration."""
+    return {
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 20, "y": 12, "z": 5}, "shift": shift,
+                "update_distance": 0.05},
+        "floam": {"min_distance": 0.5, "max_distance": 40.0,
+                  "edge_threshold": 0.5, "surf_threshold": 0.05,
+                  "edge_resolution": 0.15, "optimization_steps": 3,
+                  "enrich": 4, "vgicp_fitness_score": 6.0},
+        "lidar": {"channels": APP_CH, "hresolution": APP_COLS},
+    }
+
+
+FEATSENSE_KW = dict(edge_capacity=1024, surf_capacity=2048,
+                    cloud_capacity=8192,
+                    odom_kwargs=dict(edge_map_capacity=4096,
+                                     surf_map_capacity=8192))
+
+
+def walk_scans(n=6):
+    """(ground-truth poses, scans) of the walk: 0.1 m steps, seed 0."""
+    from warpsense_tpu_torch.io.synthetic import (BoxWorld, render_scan,
+                                                  walk_trajectory)
+    poses = walk_trajectory(n, step_m=0.1)
+    world = BoxWorld.default()
+    rng = np.random.default_rng(0)
+    return poses, [render_scan(world, p, channels=APP_CH, columns=APP_COLS,
+                               noise_std=0.002, rng=rng) for p in poses]
+
+
+def run_app(mesh, outdir: str) -> dict:
+    """The sharded app on the walk with a 0.25 m shift (each rank persists
+    its own rows), a resume from those files, and the featsense mesh back
+    end on the same scans with a 0.15 m shift."""
+    from warpsense_tpu_torch.core.config import Params
+    from warpsense_tpu_torch.parallel.distributed import gather_state
+    from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
+    from warpsense_tpu_torch.pipeline.warpsense_sharded import \
+        ShardedWarpsenseApp
+
+    _, scans = walk_scans()
+    kw = dict(mesh=mesh, map_path=f"{outdir}/mh.h5", capacity=8192,
+              window_size=WINDOW)
+    app = ShardedWarpsenseApp(Params.from_dict(app_config(0.25)), **kw)
+    traj = [app.cloud_callback(scan, float(i))
+            for i, scan in enumerate(scans)]
+    pos = app.state.pos.numpy().copy()
+    app.terminate()
+    again = ShardedWarpsenseApp(Params.from_dict(app_config(0.25)),
+                                resume=True, **kw)
+    resumed = gather_state(again.state, mesh)
+    out = dict(traj=np.stack(traj), pos=pos,
+               resumed_pose=again.pose.copy(),
+               resumed_initialized=np.asarray(again.initialized),
+               resumed_weight=resumed.weight, resumed_pos=resumed.pos)
+    again.terminate()
+
+    fapp = FeatsenseApp(Params.from_dict(featsense_config(0.15)),
+                        map_path=f"{outdir}/fs.h5", mesh=mesh,
+                        window_size=WINDOW, device="cpu", **FEATSENSE_KW)
+    for i, scan in enumerate(scans):
+        fapp.process_scan(scan, float(i))
+    full = gather_state(fapp.mapping.state, mesh)
+    out.update(gicp=np.stack(fapp.mapping.gicp_path), fs_value=full.value,
+               fs_weight=full.weight, fs_pos=full.pos)
+    fapp.terminate()
+    return out
+
+
+# ---------------------------------------------------------------- launch
+
+def _entry(rank, world, store_path, name, outdir, kwargs):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        from warpsense_tpu_torch.parallel.sharded import make_mesh
+        out = globals()[f"run_{name}"](make_mesh("cpu"), **kwargs)
+        np.savez(Path(outdir) / f"{name}_{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(name: str, world: int, tmp_path, timeout_s=JOIN_TIMEOUT_S,
+           **kwargs) -> list[dict]:
+    """Run ``run_<name>(mesh, **kwargs)`` on ``world`` gloo CPU ranks;
+    returns each rank's arrays, in rank order.  Set OMP_NUM_THREADS=1 in
+    the environment first (the ranks inherit it)."""
+    tmp_path = Path(tmp_path)
+    store = tmp_path / f"{name}_{world}.store"
+    ctx = mp.start_processes(
+        _entry, args=(world, str(store), name, str(tmp_path), kwargs),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks of run_{name} did not "
+                                   f"finish in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    outs = []
+    for r in range(world):
+        with np.load(tmp_path / f"{name}_{r}.npz") as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs
+
+
+def env_one_thread(monkeypatch) -> None:
+    """Ranks start with one OpenMP thread each."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")

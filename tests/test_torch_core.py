@@ -35,7 +35,19 @@ def test_import_leaves_jax_out():
             "warpsense_tpu_torch.kernels.fusion",
             "warpsense_tpu_torch.kernels.fields",
             "warpsense_tpu_torch.interop",
-            "warpsense_tpu_torch.io.synthetic"]
+            "warpsense_tpu_torch.io.synthetic",
+            "warpsense_tpu_torch.native",
+            "warpsense_tpu_torch.utils.native_queue",
+            "warpsense_tpu_torch.utils.device_query",
+            "warpsense_tpu_torch.parallel.sharded",
+            "warpsense_tpu_torch.parallel.distributed",
+            "warpsense_tpu_torch.pipeline.warpsense_sharded",
+            "warpsense_tpu_torch.pipeline.featsense",
+            "warpsense_tpu_torch.eval.merge_maps",
+            "warpsense_tpu_torch.eval.slam_eval",
+            "warpsense_tpu_torch.eval.feature_compare",
+            "warpsense_tpu_torch.frontends.featsense.floam_original",
+            "warpsense_tpu_torch.frontends.featsense.features_reference"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'warpsense_tpu.')) or "

@@ -508,3 +508,75 @@ def test_fastsense_worker_clone_keeps_snapshots_without_a_move(cuda):
         for t, c in zip(pair, copy):
             assert torch.equal(t, c)
     assert not torch.equal(snaps[0][0][1], snaps[-1][0][1])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_k1_per_slab_matches_plain(cuda, world):
+    """The sharded projective fusion runs K1 on each rank's x-slab with the
+    slab's own coordinates: every slab equals the plain sweep's rows of
+    the whole window (level and tilted).  The ranks are laid out without a
+    group: fusion needs no communication."""
+    from warpsense_tpu_torch.parallel.sharded import (Mesh, shard_state,
+                                                      slab_rows,
+                                                      tsdf_update_projective_sharded)
+    size = (160, 150, 60)
+    kw = dict(size=size, tau=TAU, max_weight=32 * 64, resolution=RES,
+              channels=128, columns=1024, vfov_deg=45.0)
+    pts = torch.as_tensor(box_room_cloud(20000, 4300, 1500), device=cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    spos = torch.tensor([1, -1, 0], dtype=torch.int32, device=cuda)
+    for R, level in ((torch.eye(3), True), (_tilt(6.0), False)):
+        whole = create_state(size, TAU, 0, force_odd=False)
+        plain = clone_state(whole)
+        sweep_kw = dict(tau=TAU, resolution=RES, channels=128,
+                        columns=1024, vfov_deg=45.0)
+        rng_tab, ends, smm, cx, cy, cz = fusion_inputs(
+            plain, pts.cpu(), mask.cpu(), spos.cpu(), R, size=size,
+            **sweep_kw)
+        sweep_merge_plain(plain.value, plain.weight, cx, cy, cz, rng_tab,
+                          ends, smm, R, max_weight=32 * 64, **sweep_kw)
+        before = fusion_sweep_merge.launches
+        for rank in range(world):
+            mesh = Mesh(None, rank, world, cuda)
+            lo, hi = slab_rows(mesh, size[0])
+            st = tsdf_update_projective_sharded(
+                shard_state(whole, mesh), pts, mask, spos, R, mesh=mesh,
+                level=level, **kw)
+            assert torch.equal(st.value.cpu(), plain.value[lo:hi])
+            assert torch.equal(st.weight.cpu(), plain.weight[lo:hi])
+        assert fusion_sweep_merge.launches == before + world
+        assert int((plain.weight != 0).sum()) > 100_000
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k2_on_padded_slabs_matches_whole_window(cuda, exact):
+    """K2 on each slab padded with its ring neighbours' edge planes, outer
+    planes dropped, gives the whole window's planes (and the plain
+    version's) bit for bit."""
+    from warpsense_tpu_torch.map.local_map import LocalMapState
+    size, world = (64, 45, 37), 4
+    g = torch.Generator().manual_seed(7)
+    value = torch.randint(-32768, 32767, size, generator=g,
+                          dtype=torch.int32).to(torch.int16)
+    weight = torch.where(torch.rand(size, generator=g) < 0.7,
+                         torch.randint(1, 32767, size, generator=g,
+                                       dtype=torch.int32),
+                         torch.zeros(size, dtype=torch.int32)).to(torch.int16)
+    pos = torch.zeros(3, dtype=torch.int32)
+    off = torch.tensor([s // 2 for s in size], dtype=torch.int32)
+    whole = LocalMapState(value.to(cuda), weight.to(cuda), pos.to(cuda),
+                          off.to(cuda))
+    want = fields_packed(whole, tau=1000, exact=exact)
+    plain = fields_packed(LocalMapState(value, weight, pos, off), tau=1000,
+                          exact=exact)
+    for a, b in zip(want, plain):
+        assert torch.equal(a.cpu(), b)
+    xs = size[0] // world
+    for r in range(world):
+        lo, hi = r * xs, (r + 1) * xs
+        rows = [(lo - 1) % size[0], *range(lo, hi), hi % size[0]]
+        padded = LocalMapState(value[rows].to(cuda), weight[rows].to(cuda),
+                               whole.pos, whole.offset)
+        got = fields_packed(padded, tau=1000, exact=exact)
+        for a, b in zip(got, want):
+            assert torch.equal(a[1:-1], b[lo:hi])

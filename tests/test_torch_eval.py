@@ -150,17 +150,38 @@ def test_slam_eval_featsense_cli(tmp_path, capsys, monkeypatch):
 
 
 def test_slam_eval_cli_defaults_to_the_card(tmp_path):
-    """``--device`` defaults to cuda: without a GPU the run raises; the
-    sharded pipeline of the JAX CLI is not offered."""
+    """``--device`` defaults to cuda: without a GPU the run raises, the
+    sharded pipeline's too; an unknown pipeline is refused."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            tse.main(["--frames", "3", "--channels", "8", "--columns", "64",
-                      "--in-memory-map"])
+        for pipeline in ("warpsense", "warpsense-sharded"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                tse.main(["--pipeline", pipeline, "--frames", "3",
+                          "--channels", "8", "--columns", "64",
+                          "--in-memory-map"])
         for mod in (tp2t, treg):
             with pytest.raises(RuntimeError, match="cuda"):
                 mod.run(_small_cloud(), tau=TAU, resolution=RES, size=SIZE)
     with pytest.raises(SystemExit):
-        tse.main(["--pipeline", "warpsense-sharded", "--device", "cpu"])
+        tse.main(["--pipeline", "warpsense-mesh", "--device", "cpu"])
+
+
+def test_slam_eval_sharded_cli_matches_jax(tmp_path, capsys, monkeypatch):
+    """``--pipeline warpsense-sharded``, 4 scans of 16 x 256, as a world of
+    one against the JAX CLI on its 8-device CPU mesh (a 392-voxel x extent
+    there, 391 here), within the registration tolerance; and at a world
+    of one the port's sharded run is its warpsense run, bit for bit."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    args = ["--frames", "4", "--channels", "16", "--columns", "256"]
+    runs = _cli_runs(monkeypatch, capsys, tmp_path,
+                     ["--pipeline", "warpsense-sharded"] + args)
+    t = runs["torch"][0]
+    assert (t["rank"], t["world"], t["ate_frames"]) == (0, 1, 4)
+    _hold_cli_to_jax(runs, mm=0.5, rot=1e-4, ate_m=1e-3)
+    plain = _cli_runs(monkeypatch, capsys, tmp_path,
+                      ["--pipeline", "warpsense"] + args)
+    np.testing.assert_array_equal(runs["torch"][1], plain["torch"][1])
 
 
 def test_slam_eval_from_a_bag_with_tum_ground_truth(tmp_path, capsys):

@@ -11,8 +11,18 @@ truth and report ATE RMSE, per-scan time and scans/s as one JSON line.
 
 The apps run on ``--device`` (default ``cuda``; a CUDA device without a
 GPU raises).  ``--in-memory-map`` keeps the global map in memory (no h5py
-needed, nothing persisted).  The JAX CLI's ``warpsense-sharded`` pipeline
-belongs to the multi-GPU layer, which is not ported.
+needed, nothing persisted).
+
+``--pipeline warpsense-sharded`` runs ``ShardedWarpsenseApp``: as a world
+of one in a plain process, or one rank per process under torchrun (each
+rank on cuda:LOCAL_RANK unless ``--device`` names another device; each
+rank persists its rows into ``<map>.p<rank>.h5``):
+
+    torchrun --nproc-per-node 4 -m warpsense_tpu_torch.eval.slam_eval \
+        --pipeline warpsense-sharded --frames 20
+
+Two ranks on one GPU need ``--backend gloo`` (NCCL refuses two ranks on
+one device).
 """
 from __future__ import annotations
 
@@ -46,10 +56,19 @@ def default_params(channels: int, columns: int) -> Params:
 
 def run_warpsense(dataset, params: Params, map_path: Path | None, *,
                   capacity: int = 32768, device="cuda",
-                  in_memory_map: bool = False, tum_out=None) -> dict:
-    from ..pipeline.warpsense import WarpsenseApp
-    app = WarpsenseApp(params, map_path=map_path, capacity=capacity,
-                       device=device, in_memory_map=in_memory_map)
+                  in_memory_map: bool = False, tum_out=None,
+                  sharded: bool = False) -> dict:
+    """``sharded``: the sharded app over this process's mesh (the
+    initialized default group, or a world of one)."""
+    if sharded:
+        from ..pipeline.warpsense_sharded import ShardedWarpsenseApp
+        app = ShardedWarpsenseApp(params, map_path=map_path,
+                                  capacity=capacity, device=device,
+                                  in_memory_map=in_memory_map)
+    else:
+        from ..pipeline.warpsense import WarpsenseApp
+        app = WarpsenseApp(params, map_path=map_path, capacity=capacity,
+                           device=device, in_memory_map=in_memory_map)
     truth, est, times, stamps = [], [], [], []
     for frame in dataset:
         t0 = time.perf_counter()
@@ -116,7 +135,8 @@ def _report(est: np.ndarray, truth, times: list[float], stamps,
 def main(argv=None) -> dict:
     """Parse ``argv``, run, print the report as one JSON line; returns it."""
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--pipeline", choices=["warpsense", "featsense"],
+    ap.add_argument("--pipeline",
+                    choices=["warpsense", "warpsense-sharded", "featsense"],
                     default="warpsense")
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--channels", type=int, default=128)
@@ -138,6 +158,9 @@ def main(argv=None) -> dict:
                     help="cuda (default), cuda:N or cpu")
     ap.add_argument("--in-memory-map", action="store_true",
                     help="keep the global map in memory (no HDF5 file)")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="warpsense-sharded under torchrun: the process "
+                         "group's backend")
     args = ap.parse_args(argv)
 
     if args.bag:
@@ -169,10 +192,35 @@ def main(argv=None) -> dict:
               tum_out=args.tum_out)
     if args.pipeline == "featsense":
         stats = run_featsense(dataset, params, map_path, **kw)
-    else:
+    elif args.pipeline == "warpsense":
         stats = run_warpsense(dataset, params, map_path, **kw)
+    else:
+        stats = _run_sharded(args, dataset, params, map_path, kw)
     stats["pipeline"] = args.pipeline
     print(json.dumps(stats))
+    return stats
+
+
+def _run_sharded(args, dataset, params, map_path, kw) -> dict:
+    """The sharded warpsense run as one rank of the torchrun job (or a
+    world of one); the report carries the rank and the world size."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel.distributed import init_distributed
+    from ..parallel.sharded import make_mesh
+
+    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+        kw["device"] = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    joined = init_distributed(backend=args.backend)
+    try:
+        stats = run_warpsense(dataset, params, map_path, sharded=True, **kw)
+        mesh = make_mesh(kw["device"])
+        stats.update(rank=mesh.rank, world=mesh.world)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return stats
 
 

@@ -92,13 +92,22 @@ class LocalMap:
     Owns shift / write_back (host IO).  In device-backed mode (between
     ``attach_device`` and ``detach_device``) slab IO reads and writes the
     attached tensors directly and in place.
+
+    ``slab_copies``: how the HOST path (no device attached) copies slabs
+    between the numpy window and the global map's staging buffers:
+    ``"native"`` (the default; ``ws_ring_gather`` / ``ws_ring_scatter`` of
+    native/native.cpp, built at first use, raises when it cannot be) or
+    ``"numpy"`` (the numpy twin).  Both give the same bytes.
     """
 
     def __init__(self, size: tuple[int, int, int], global_map: GlobalMap,
-                 force_odd: bool = True):
+                 force_odd: bool = True, slab_copies: str = "native"):
+        if slab_copies not in ("native", "numpy"):
+            raise ValueError(f"unknown slab_copies {slab_copies!r}")
         self.size = tuple((make_odd(int(s)) if force_odd else int(s))
                           for s in size)
         self.global_map = global_map
+        self.slab_copies = slab_copies
         s = self.size
         self.state = LocalMapState(
             value=np.full(s, global_map.default_value, np.int16),
@@ -106,6 +115,8 @@ class LocalMap:
             pos=np.zeros((3,), np.int32),
             offset=np.asarray([v // 2 for v in s], np.int32))
         self._dev: LocalMapState | None = None
+        self._x_scope: tuple[int, int] | None = None
+        self._dev_row0 = 0          # array x-row of the attached row 0
 
     # -------------------------------------------------- device-backed mode
     def attach_device(self, state: LocalMapState,
@@ -116,10 +127,30 @@ class LocalMap:
         to keep the caller's tensors unchanged.  While attached, the host
         numpy mirror is stale; ``detach_device`` returns the device state.
 
-        ``x_rows`` (the multi-process slab scope) is not ported yet."""
+        ``x_rows=(lo, hi)``: restrict slab IO to ARRAY x-rows [lo, hi), the
+        rows one rank of the multi-GPU layer owns
+        (``parallel.distributed.host_slab_bounds``): each rank evicts, loads
+        and persists only its own rows.  The attached tensors then hold
+        either the whole window or exactly rows [lo, hi) (the rank's slab,
+        ``parallel.sharded.shard_state``)."""
+        rows = state.value.shape[0]
         if x_rows is not None:
-            raise NotImplementedError(
-                "x_rows slab scoping is the multi-GPU layer (ROADMAP item 14)")
+            lo, hi = (int(x_rows[0]), int(x_rows[1]))
+            if not 0 <= lo <= hi <= self.size[0]:
+                raise ValueError(f"x_rows {x_rows} outside the window's "
+                                 f"{self.size[0]} rows")
+            if rows not in (self.size[0], hi - lo):
+                raise ValueError(f"attached state has {rows} x-rows; x_rows "
+                                 f"{x_rows} needs {hi - lo} or the whole "
+                                 f"window's {self.size[0]}")
+            self._x_scope = (lo, hi)
+            self._dev_row0 = 0 if rows == self.size[0] else lo
+        else:
+            if rows != self.size[0]:
+                raise ValueError(f"attached state has {rows} x-rows, the "
+                                 f"window {self.size[0]}: pass x_rows")
+            self._x_scope = None
+            self._dev_row0 = 0
         self._dev = LocalMapState(
             value=state.value, weight=state.weight,
             pos=np.asarray(state.pos.cpu(), np.int32).copy(),
@@ -130,6 +161,8 @@ class LocalMap:
     def detach_device(self) -> LocalMapState:
         dev = self._dev
         self._dev = None
+        self._x_scope = None
+        self._dev_row0 = 0
         device = dev.value.device
         return LocalMapState(
             value=dev.value, weight=dev.weight,
@@ -143,8 +176,10 @@ class LocalMap:
         axes = []
         for i in range(3):
             rng = np.arange(start[i], end[i] + 1, dtype=np.int64)
-            axes.append(torch.as_tensor((rng - pos[i] + off[i])
-                                        % self.size[i], device=device))
+            a = (rng - pos[i] + off[i]) % self.size[i]
+            if i == 0:
+                a = a - self._dev_row0
+            axes.append(torch.as_tensor(a, device=device))
         return axes
 
     def _dev_gather(self, start, end):
@@ -202,23 +237,102 @@ class LocalMap:
                         .astype(np.int64))
         return np.ix_(*axes)
 
+    def _native_args(self, start, end, raw):
+        """ctypes arguments of ws_ring_gather / ws_ring_scatter over the
+        host window; the last item keeps the temporaries alive."""
+        import ctypes
+        from ..native import load as load_native
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        for t in (self.state.value, self.state.weight):
+            if not (t.flags.c_contiguous and t.dtype == np.int16):
+                raise ValueError("host window must be contiguous int16")
+        size = np.asarray(self.size, np.int32)
+        pos = np.asarray(self.state.pos, np.int32)
+        off = np.asarray(self.state.offset, np.int32)
+        start = np.ascontiguousarray(start, np.int64)
+        end = np.ascontiguousarray(end, np.int64)
+        if raw.shape != tuple((end - start + 1).tolist()) or not (
+                raw.flags.c_contiguous and raw.dtype == np.uint32):
+            raise ValueError("slab buffer must be contiguous uint32 of the "
+                             "box's shape")
+        return load_native(), (
+            self.state.value.ctypes.data_as(i16p),
+            self.state.weight.ctypes.data_as(i16p),
+            size.ctypes.data_as(i32p), pos.ctypes.data_as(i32p),
+            off.ctypes.data_as(i32p), start.ctypes.data_as(i64p),
+            end.ctypes.data_as(i64p), raw.ctypes.data_as(u32p)), (
+            size, pos, off, start, end, raw)
+
+    def _x_runs(self, start, end):
+        """Split the global x range [start[0], end[0]] into runs whose
+        ARRAY rows fall inside the x scope (ring-aware: a contiguous global
+        range maps to at most a handful of scoped runs); one run covering
+        everything when unscoped."""
+        if self._x_scope is None:
+            return [(int(start[0]), int(end[0]))]
+        lo, hi = self._x_scope
+        pos = int(self.state.pos[0])
+        off = int(self.state.offset[0])
+        X = self.size[0]
+        runs, cur = [], None
+        for gx in range(int(start[0]), int(end[0]) + 1):
+            if lo <= (gx - pos + off) % X < hi:
+                if cur is None:
+                    cur = [gx, gx]
+                else:
+                    cur[1] = gx
+            elif cur is not None:
+                runs.append(tuple(cur))
+                cur = None
+        if cur is not None:
+            runs.append(tuple(cur))
+        return runs
+
     def _save_area(self, start, end) -> None:
         start = np.asarray(start, np.int64)
         end = np.asarray(end, np.int64)
+        for gx0, gx1 in self._x_runs(start, end):
+            s, e = start.copy(), end.copy()
+            s[0], e[0] = gx0, gx1
+            self._save_area_run(s, e)
+
+    def _save_area_run(self, start, end) -> None:
         if self._dev is not None:
             v, w = self._dev_gather(start, end)
-        else:
-            ix = self._area_array_index(start, end)
-            v, w = self.state.value[ix], self.state.weight[ix]
-        self.global_map.write_area(start, pack(v, w))
+            self.global_map.write_area(start, pack(v, w))
+            return
+        if self.slab_copies == "native":
+            raw = np.empty(tuple((end - start + 1).tolist()), np.uint32)
+            lib, args, _keep = self._native_args(start, end, raw)
+            lib.ws_ring_gather(*args)
+            self.global_map.write_area(start, raw)
+            return
+        ix = self._area_array_index(start, end)
+        self.global_map.write_area(
+            start, pack(self.state.value[ix], self.state.weight[ix]))
 
     def _load_area(self, start, end) -> None:
         start = np.asarray(start, np.int64)
         end = np.asarray(end, np.int64)
-        v, w = unpack(self.global_map.read_area(start, end))
+        for gx0, gx1 in self._x_runs(start, end):
+            s, e = start.copy(), end.copy()
+            s[0], e[0] = gx0, gx1
+            self._load_area_run(s, e)
+
+    def _load_area_run(self, start, end) -> None:
+        raw = self.global_map.read_area(start, end)
         if self._dev is not None:
-            self._dev_scatter(start, end, v, w)
+            self._dev_scatter(start, end, *unpack(raw))
             return
+        if self.slab_copies == "native":
+            raw = np.ascontiguousarray(raw, np.uint32)
+            lib, args, _keep = self._native_args(start, end, raw)
+            lib.ws_ring_scatter(*args)
+            return
+        v, w = unpack(raw)
         ix = self._area_array_index(start, end)
         self.state.value[ix] = v
         self.state.weight[ix] = w
@@ -259,6 +373,79 @@ class LocalMap:
         else:
             end[axis] = start[axis] - diff - 1
         self._load_area(start, end)
+
+    # -------------------------------------------- overlapped (staged) shift
+    #
+    # The staged shift keeps every device copy on the calling thread:
+    #   begin_shift  (caller)  gather the evicted boxes off the device
+    #   shift_io     (worker)  global-map writes and reads only
+    #   finish_shift (caller)  advance pos/offset, scatter the loaded boxes
+    # Array coords of a fixed global voxel do not change when pos and
+    # offset advance together, so the interior O∩N never moves and the
+    # evicted (O\N) and loaded (N\O) boxes are disjoint: the result equals
+    # the axis-sequenced ``shift`` (hdf5_local_map.cpp:53-118).
+
+    @staticmethod
+    def _box_diff(a_start, a_end, b_start, b_end):
+        """Disjoint inclusive boxes covering A \\ B (axis peeling)."""
+        boxes = []
+        cur_s = np.asarray(a_start, np.int64).copy()
+        cur_e = np.asarray(a_end, np.int64).copy()
+        for ax in range(3):
+            if cur_e[ax] < b_start[ax] or cur_s[ax] > b_end[ax]:
+                boxes.append((cur_s.copy(), cur_e.copy()))   # fully outside
+                return boxes
+            if cur_s[ax] < b_start[ax]:
+                s, e = cur_s.copy(), cur_e.copy()
+                e[ax] = b_start[ax] - 1
+                boxes.append((s, e))
+                cur_s[ax] = b_start[ax]
+            if cur_e[ax] > b_end[ax]:
+                s, e = cur_s.copy(), cur_e.copy()
+                s[ax] = b_end[ax] + 1
+                boxes.append((s, e))
+                cur_e[ax] = b_end[ax]
+        return boxes                      # remaining core lies inside B
+
+    def begin_shift(self, new_pos) -> dict:
+        """Phase 1/3 (the caller's thread, device attached without an
+        x-row scope): gather the evicted boxes to host memory.  Returns the
+        shift plan.  Exact at any distance: a move beyond the window evicts
+        all of the old window and loads all of the new one."""
+        if self._dev is None or self._x_scope is not None:
+            raise RuntimeError("begin_shift needs attach_device without an "
+                               "x-row scope (multi-rank shifts are "
+                               "synchronous)")
+        new_pos = np.asarray(new_pos, np.int64)
+        pos = np.asarray(self.state.pos, np.int64)
+        size = np.asarray(self.size, np.int64)
+        o_s, o_e = pos - size // 2, pos + (size - 1) // 2
+        n_s, n_e = new_pos - size // 2, new_pos + (size - 1) // 2
+        evict = [(s, e) + self._dev_gather(s, e)
+                 for s, e in self._box_diff(o_s, o_e, n_s, n_e)]
+        return {"new_pos": new_pos, "evict": evict,
+                "load_boxes": self._box_diff(n_s, n_e, o_s, o_e),
+                "loaded": None}
+
+    def shift_io(self, plan: dict) -> None:
+        """Phase 2/3 (safe on a worker thread): global-map IO only."""
+        for s, e, v, w in plan["evict"]:
+            self.global_map.write_area(np.asarray(s), pack(v, w))
+        plan["loaded"] = [
+            (s, e) + unpack(self.global_map.read_area(s, e))
+            for s, e in plan["load_boxes"]]
+
+    def finish_shift(self, plan: dict) -> LocalMapState:
+        """Phase 3/3 (the caller's thread): advance pos/offset, scatter the
+        loaded boxes into the attached tensors (in place), detach."""
+        size = np.asarray(self.size, np.int64)
+        diff = plan["new_pos"] - np.asarray(self.state.pos, np.int64)
+        self.state.pos[:] = plan["new_pos"].astype(np.int32)
+        self.state.offset[:] = ((self.state.offset + diff) % size
+                                ).astype(np.int32)
+        for s, e, v, w in plan["loaded"]:
+            self._dev_scatter(s, e, v, w)
+        return self.detach_device()
 
     def write_back(self) -> None:
         pos = np.asarray(self.state.pos, dtype=np.int64)

@@ -61,3 +61,41 @@ def preprocess(points_m: torch.Tensor, valid: torch.Tensor,
     transformed = transform_point_fixed(out_pts, to_int_mat(pose))
     return torch.where(out_mask[:, None], transformed,
                        torch.zeros_like(transformed)), out_mask
+
+
+def preprocess_host(points_m, *, resolution: int, capacity: int,
+                    near_limit_m: float = 0.3, backend: str = "native"):
+    """Host preprocessing twin: the same mm scale -> voxel-center snap ->
+    dedup -> near filter as ``preprocess``, without the pose transform (the
+    caller applies it, or feeds the centers straight to the device).
+    Returns numpy (points (capacity, 3) int32 mm, mask (capacity,) bool);
+    data-loader threads use it to shrink host-to-device transfers to the
+    dedup'd cloud.
+
+    ``backend="native"`` runs ``ws_preprocess`` (native/native.cpp; raises
+    when the library cannot be built), ``"numpy"`` the numpy twin."""
+    import ctypes
+
+    import numpy as np
+
+    pts = np.ascontiguousarray(points_m, dtype=np.float32).reshape(-1, 3)
+    out = np.zeros((capacity, 3), dtype=np.int32)
+    if backend == "native":
+        from ..native import load as load_native
+        n = int(load_native().ws_preprocess(
+            pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(pts),
+            int(resolution), float(near_limit_m),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), capacity))
+    elif backend == "numpy":
+        keep = np.any(pts != 0.0, axis=1) & ~np.all(pts < near_limit_m, axis=1)
+        mm = np.round(pts[keep] * 1000.0).astype(np.int64)
+        vox = np.floor_divide(mm, resolution)
+        _, first = np.unique(vox, axis=0, return_index=True)
+        vox = vox[np.sort(first)][:capacity]
+        n = len(vox)
+        out[:n] = vox * resolution + resolution // 2
+    else:
+        raise ValueError(f"unknown preprocess_host backend {backend!r}")
+    mask = np.zeros((capacity,), bool)
+    mask[:n] = True
+    return out, mask

@@ -105,23 +105,28 @@ def tsdf_update(state: LocalMapState, points: torch.Tensor,
                 points_mask: torch.Tensor, scanner_pos: torch.Tensor,
                 up: torch.Tensor, *, size: tuple[int, int, int], tau: int,
                 max_weight: int, resolution: int, max_steps: int,
-                max_isteps: int, channels: int = 128, vfov_deg: float = 45.0
-                ) -> LocalMapState:
+                max_isteps: int, channels: int = 128, vfov_deg: float = 45.0,
+                x_rows: tuple[int, int] | None = None) -> LocalMapState:
     """One ray-march fusion step, IN PLACE on ``state.value`` /
-    ``state.weight``; returns ``state``.
+    ``state.weight``; returns ``state``.  ``x_rows=(lo, hi)``: the state
+    holds only the window's array x-rows [lo, hi) (one rank's slab of the
+    multi-GPU layer); every rank marches every ray, and only the cells of
+    its own rows enter its scatter-min.
 
     points: (N, 3) int32 mm (map frame); points_mask: (N,) bool;
     scanner_pos: (3,) int32 voxel coords (rays start at its center); up:
     (3,) int32 MR-scaled map-frame sensor up vector.  (The JAX function's
     ``pos_mode="corner"`` serves its golden-line tests only.)"""
-    if tuple(state.value.shape) != tuple(size):
+    lo, hi = (0, size[0]) if x_rows is None else x_rows
+    if tuple(state.value.shape) != (hi - lo, *size[1:]):
         raise ValueError(f"state shape {tuple(state.value.shape)} != "
-                         f"size {tuple(size)}")
+                         f"rows [{lo}, {hi}) of size {tuple(size)}")
     if not (state.value.is_contiguous() and state.weight.is_contiguous()):
         raise ValueError("value/weight must be contiguous")
     dev = state.value.device
     f32, i32 = torch.float32, torch.int32
-    nvox = size[0] * size[1] * size[2]
+    nvox = (hi - lo) * size[1] * size[2]     # voxels of the rows held
+    base = lo * size[1] * size[2]
     dzpd = dz_per_distance(channels, vfov_deg)
     weight_epsilon = tau // 10
     step_mm = max(resolution // 2, 1)
@@ -207,8 +212,11 @@ def tsdf_update(state: LocalMapState, points: torch.Tensor,
             ok = (base_ok & (s < n_iter)[:, None]
                   & in_bounds(widx, state.pos, size))
             w = torch.where(mid == s, weight, -weight)
-            flats.append(torch.where(
-                ok, ring_index(widx, state.pos, state.offset, size), nvox))
+            flat = ring_index(widx, state.pos, state.offset, size)
+            if x_rows is not None:
+                flat = flat - base
+                ok = ok & (flat >= 0) & (flat < nvox)
+            flats.append(torch.where(ok, flat, nvox))
             keys.append(encode_key(value, w))
         key_map.scatter_reduce_(0, torch.cat(flats).reshape(-1).to(
             torch.int64), torch.cat(keys).reshape(-1), "amin")

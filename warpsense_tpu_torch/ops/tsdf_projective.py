@@ -481,14 +481,17 @@ def fusion_work(cx, cy, cz, rng_tab, endpoint, scanner_mm, rotation, *,
 
 def fusion_inputs(state: LocalMapState, points, points_mask, scanner_pos,
                   rotation, *, size, tau, resolution, channels, columns,
-                  vfov_deg):
+                  vfov_deg, x_rows: tuple[int, int] | None = None):
     """Everything the sweep reads besides the map: (rng_tab, endpoint,
     scanner_mm, cx, cy, cz).  The march drops whole rays whose endpoint
     falls outside the window grown by tau/2 (update_tsdf.cu:69-75); the
-    beam table gates points identically."""
-    if tuple(state.value.shape) != tuple(size):
+    beam table gates points identically.  ``x_rows=(lo, hi)``: the state
+    holds only the window's array x-rows [lo, hi) (one rank's slab of the
+    multi-GPU layer), and ``cx`` covers those rows."""
+    lo, hi = (0, size[0]) if x_rows is None else x_rows
+    if tuple(state.value.shape) != (hi - lo, *size[1:]):
         raise ValueError(f"state shape {tuple(state.value.shape)} != "
-                         f"size {tuple(size)}")
+                         f"rows [{lo}, {hi}) of size {tuple(size)}")
     scanner_mm = scanner_pos * resolution + resolution // 2
     cell = torch.div(points, resolution, rounding_mode="floor")
     points_mask = points_mask & in_bounds(cell, state.pos, size,
@@ -498,7 +501,7 @@ def fusion_inputs(state: LocalMapState, points, points_mask, scanner_pos,
         columns=columns, vfov_deg=vfov_deg)
     cx, cy, cz = relative_coords(state.pos, state.offset, size, scanner_mm,
                                  resolution)
-    return rng_tab, endpoint, scanner_mm, cx, cy, cz
+    return rng_tab, endpoint, scanner_mm, cx[lo:hi], cy, cz
 
 
 def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,

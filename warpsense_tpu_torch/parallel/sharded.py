@@ -1,0 +1,363 @@
+"""Multi-GPU sharding of the TSDF window and the SLAM step over a
+``torch.distributed`` process group.
+
+Counterpart of ``warpsense_tpu/parallel/sharded.py`` (the reference is
+single-GPU; this layer is new capability).  Each rank of the group is one
+process that owns one device and one x-slab of the window:
+
+* the window (value, weight) is block-split along its ARRAY x-axis: rank r
+  holds rows [r X/n, (r+1) X/n) as (X/n, Y, Z) int16 tensors on its
+  device; ``pos`` and ``offset`` are replicated, so the ring index math is
+  unchanged;
+* **fusion**: every rank builds the beam table (or marches every ray) from
+  the whole cloud and sweeps or scatters into its own slab only: kernel K1
+  per slab for the projective update, with no communication;
+* **fields and registration**: the +-1-voxel gradient stencil crosses slab
+  boundaries, so each rank sends its first and last YZ-planes to its ring
+  neighbours (rank 0's left neighbour is rank n-1: the window is a torus)
+  and runs kernel K2 on its slab padded with the two halo planes; each
+  rank then gathers the points whose cells it owns, and the 44 statistics
+  (H, g, e, c) of every rank are all-gathered and summed IN RANK ORDER on
+  every rank, so every rank's host solve, stop test and pose updates see
+  the same bits (an all-reduce's order depends on the algorithm and the
+  backend);
+* the backend is the group's: where it is gloo, halos and statistics pass
+  through host memory (gloo moves CPU tensors); with NCCL they stay on the
+  device.
+
+A ``Mesh`` without a group is a world of one (no collectives): the whole
+window on one device.  Keep the JAX names; the functions take the same
+arguments plus ``mesh``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..map.local_map import LocalMapState, ring_coords
+from ..ops.registration import (PackedFields, PackedFields2,
+                                RegistrationFields, _gn_loop, _lm_loop,
+                                jacobian_stats_fields, make_packed_stats,
+                                make_packed_stats_split, precompute_fields)
+from ..ops.tsdf import tsdf_update
+from ..ops.tsdf_projective import check_fusion_config, fusion_inputs
+from ..utils.device import resolve_device
+
+
+class Mesh(NamedTuple):
+    """One rank's view of the x-sharded layout."""
+    group: object | None     # torch.distributed ProcessGroup; None: no group
+    rank: int
+    world: int
+    device: torch.device
+
+
+def make_mesh(device="cuda", group=None) -> Mesh:
+    """This process's ``Mesh`` over ``group`` (default: the initialized
+    default group; a world of one when none is initialized)."""
+    device = resolve_device(device)
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    if group is None:
+        return Mesh(None, 0, 1, device)
+    return Mesh(group, dist.get_rank(group), dist.get_world_size(group),
+                device)
+
+
+def slab_rows(mesh: Mesh, X: int) -> tuple[int, int]:
+    """[lo, hi): the array x-rows this rank owns."""
+    if X % mesh.world:
+        raise ValueError(f"window x extent {X} must divide the "
+                         f"{mesh.world}-rank mesh")
+    xs = X // mesh.world
+    return mesh.rank * xs, (mesh.rank + 1) * xs
+
+
+def shard_state(state: LocalMapState, mesh: Mesh) -> LocalMapState:
+    """This rank's slab of a whole-window state (numpy arrays or tensors on
+    any device), copied to ``mesh.device``; pos/offset replicated."""
+    lo, hi = slab_rows(mesh, state.value.shape[0])
+
+    def slab(t):
+        t = torch.as_tensor(np.asarray(t) if not torch.is_tensor(t) else t)
+        return t[lo:hi].to(device=mesh.device, dtype=torch.int16,
+                           copy=True).contiguous()
+
+    def rep(t):
+        t = torch.as_tensor(np.asarray(t) if not torch.is_tensor(t) else t)
+        return t.to(device=mesh.device, dtype=torch.int32, copy=True)
+
+    return LocalMapState(value=slab(state.value), weight=slab(state.weight),
+                         pos=rep(state.pos), offset=rep(state.offset))
+
+
+# ------------------------------------------------------------- collectives
+
+def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the group's backend can move it: host memory for gloo
+    (which moves CPU tensors), the device otherwise."""
+    if dist.get_backend(mesh.group) == "gloo":
+        return t.cpu()
+    return t
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as uint8 (neither gloo nor NCCL moves
+    int16); ``.view(dtype)`` restores it."""
+    return t.contiguous().view(torch.uint8)
+
+
+def _peer(mesh: Mesh, rank: int) -> int:
+    return dist.get_global_rank(mesh.group, rank)
+
+
+def _halo_exchange_x(blocks: list[torch.Tensor], mesh: Mesh
+                     ) -> list[torch.Tensor]:
+    """Each (Xs, Y, Z) block of this rank -> (Xs+2, Y, Z), a fresh
+    contiguous tensor with its ring-neighbour halos: the last plane of the
+    left neighbour and the first plane of the right one.  The blocks share
+    one dtype and travel in one pair of messages each way."""
+    if mesh.world == 1:
+        return [torch.cat([b[-1:], b, b[:1]]) for b in blocks]
+    dev, dtype = blocks[0].device, blocks[0].dtype
+    to_right = _wire(mesh, _bytes(torch.stack([b[-1] for b in blocks])))
+    to_left = _wire(mesh, _bytes(torch.stack([b[0] for b in blocks])))
+    from_left = torch.empty_like(to_right)
+    from_right = torch.empty_like(to_left)
+    left = _peer(mesh, (mesh.rank - 1) % mesh.world)
+    right = _peer(mesh, (mesh.rank + 1) % mesh.world)
+    # the tags tell the two messages apart at a world of two, where both
+    # neighbours are one rank; NCCL matches them in this same order
+    ops = [dist.P2POp(dist.isend, to_right, right, mesh.group, tag=0),
+           dist.P2POp(dist.isend, to_left, left, mesh.group, tag=1),
+           dist.P2POp(dist.irecv, from_left, left, mesh.group, tag=0),
+           dist.P2POp(dist.irecv, from_right, right, mesh.group, tag=1)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    from_left = from_left.to(dev).view(dtype)
+    from_right = from_right.to(dev).view(dtype)
+    return [torch.cat([from_left[i:i + 1], b, from_right[i:i + 1]])
+            for i, b in enumerate(blocks)]
+
+
+def _padded(state: LocalMapState, mesh: Mesh) -> LocalMapState:
+    """The rank's slab with its two halo planes (value and weight fresh
+    tensors, so they share K2's 16-byte alignment)."""
+    value, weight = _halo_exchange_x([state.value, state.weight], mesh)
+    return LocalMapState(value=value, weight=weight, pos=state.pos,
+                         offset=state.offset)
+
+
+def sum_in_rank_order(mesh: Mesh, flat: torch.Tensor) -> torch.Tensor:
+    """All-gather a 1-D float tensor from every rank and sum the parts in
+    rank order, on the host: every rank gets the same bits."""
+    if mesh.group is None:
+        return flat.cpu()
+    x = _wire(mesh, flat.contiguous())
+    parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(parts, x, group=mesh.group)
+    parts = torch.stack(parts).cpu()
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's (Xs, ...) block concatenated along x in rank order, on
+    the host of every rank."""
+    if mesh.group is None:
+        return t.cpu()
+    x = _wire(mesh, _bytes(t))
+    parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(parts, x, group=mesh.group)
+    return torch.cat([p.cpu() for p in parts]).view(t.dtype)
+
+
+def _reduced(mesh: Mesh, stats4):
+    """(H, g, e, c) summed over the ranks in rank order (host tensors)."""
+    H, g, e, c = stats4
+    flat = torch.cat([H.reshape(36), g.reshape(6), e.reshape(1),
+                      c.reshape(1)]).to(torch.float32)
+    tot = sum_in_rank_order(mesh, flat)
+    return tot[:36].reshape(6, 6), tot[36:42], tot[42], tot[43]
+
+
+def _owned_index_fn(mesh: Mesh, pos, offset, size):
+    """``index_fn`` of the registration statistics: rank-local array
+    coords of each cell (zero where another rank owns it) and ownership."""
+    lo, hi = slab_rows(mesh, size[0])
+
+    def index_fn(buf):
+        a = ring_coords(buf, pos, offset, size)
+        owned = (a[:, 0] >= lo) & (a[:, 0] < hi)
+        local = torch.stack([a[:, 0] - lo, a[:, 1], a[:, 2]], dim=-1)
+        return torch.where(owned[:, None], local,
+                           torch.zeros_like(local)), owned
+
+    return index_fn
+
+
+# ------------------------------------------------------------ parity mode
+
+def register_cloud_sharded(state: LocalMapState, points, mask, pretransform,
+                           *, mesh: Mesh, size, resolution, max_iterations,
+                           it_weight_gradient, epsilon,
+                           mode: str = "parity") -> torch.Tensor:
+    """Sharded Gauss-Newton registration: the contract of
+    ``ops.registration.register_cloud`` with the map x-sharded.  The
+    parity fields are computed on the rank's slab padded with its halo
+    planes; the refined 4x4 pose is the same on every rank."""
+    padded = precompute_fields(_padded(state, mesh))
+    fields = RegistrationFields(*(p[1:-1] for p in padded))
+    index_fn = _owned_index_fn(mesh, state.pos, state.offset, size)
+
+    def stats(total):
+        return _reduced(mesh, jacobian_stats_fields(
+            fields, state.pos, state.offset, points, mask, total, size=size,
+            resolution=resolution, normalize_gradient=mode == "fast",
+            index_fn=index_fn))
+
+    pose, _ = _gn_loop(stats, pretransform.to(mesh.device),
+                       max_iterations=max_iterations,
+                       it_weight_gradient=it_weight_gradient,
+                       epsilon=epsilon, mode=mode)
+    return pose
+
+
+def tsdf_update_sharded(state: LocalMapState, points, points_mask,
+                        scanner_pos, up, *, mesh: Mesh, size, tau, max_weight,
+                        resolution, max_steps, max_isteps, channels: int = 128,
+                        vfov_deg: float = 45.0) -> LocalMapState:
+    """Sharded ray-march fusion, in place on the rank's slab: the march is
+    replicated over points and the scatter-min and merge touch only the
+    rank's rows."""
+    return tsdf_update(state, points, points_mask, scanner_pos, up,
+                       size=size, tau=tau, max_weight=max_weight,
+                       resolution=resolution, max_steps=max_steps,
+                       max_isteps=max_isteps, channels=channels,
+                       vfov_deg=vfov_deg,
+                       x_rows=slab_rows(mesh, size[0]))
+
+
+# -------------------------------------------------------------- fast mode
+
+def precompute_fields_packed_sharded(state: LocalMapState, *, mesh: Mesh,
+                                     tau: int, exact: bool = False):
+    """Sharded ``precompute_fields_packed[2]``: kernel K2 (its plain
+    version on the CPU) on the rank's slab padded with its two halo
+    planes, outer output planes dropped.  The stencil reaches +-1 in x and
+    wraps only in y and z inside a plane, so the kept planes are the
+    single-window planes of the rank's rows, bit for bit."""
+    from ..kernels.fields import fields_packed
+    f = fields_packed(_padded(state, mesh), tau=tau, exact=exact)
+    if exact:
+        return PackedFields2(plane_a=f.plane_a[1:-1], plane_b=f.plane_b[1:-1])
+    return PackedFields(plane=f.plane[1:-1])
+
+
+def register_cloud_packed_sharded(fields, pos, offset, points, mask,
+                                  pretransform, *, mesh: Mesh, size,
+                                  resolution: int, tau: int,
+                                  max_iterations: int, epsilon: float,
+                                  interp: bool = True,
+                                  gather_freeze: bool = False):
+    """Sharded ``register_cloud_packed``: returns ``(pose, iterations,
+    err)``, the same on every rank.  Each rank gathers only the points
+    whose cells it owns, and the statistics are summed in rank order each
+    LM iteration (src/warpsense/cuda/registration.cu:14-257 scaled out)."""
+    kw = dict(size=size, resolution=resolution, tau=tau, interp=interp,
+              index_fn=_owned_index_fn(mesh, pos, offset, size))
+    local = make_packed_stats(fields, pos, offset, points, mask, **kw)
+
+    def stats(total):
+        return _reduced(mesh, local(total))
+
+    split = None
+    if gather_freeze:
+        gather_fn, eval_local = make_packed_stats_split(
+            fields, pos, offset, points, mask, **kw)
+
+        def eval_fn(cache, total):
+            return _reduced(mesh, eval_local(cache, total))
+
+        split = (gather_fn, eval_fn)
+    return _lm_loop(stats, pretransform.to(mesh.device),
+                    max_iterations=max_iterations, epsilon=epsilon,
+                    split=split, freeze_step_mm=float(resolution))
+
+
+def tsdf_update_projective_sharded(
+        state: LocalMapState, points, points_mask, scanner_pos, rotation, *,
+        mesh: Mesh, size, tau, max_weight, resolution, channels: int = 128,
+        columns: int = 1024, vfov_deg: float = 45.0,
+        level: bool = False) -> LocalMapState:
+    """Sharded ``tsdf_update_projective``, in place on the rank's slab: the
+    beam table is built from the whole cloud on every rank; kernel K1 (its
+    plain version on the CPU) sweeps the rank's rows, given by their own
+    scanner-relative x coordinates, with no communication.  ``level=True``
+    runs K1's level sweep (identity rotation); otherwise K1's general
+    sweep bins with ``rotation`` (the JAX function runs its XLA sweep
+    there)."""
+    from ..kernels.fusion import fusion_sweep_merge
+
+    check_fusion_config(tau, max_weight, vfov_deg)
+    kw = dict(tau=tau, resolution=resolution, channels=channels,
+              columns=columns, vfov_deg=vfov_deg)
+    rng_tab, endpoint, scanner_mm, cx, cy, cz = fusion_inputs(
+        state, points, points_mask, scanner_pos, rotation, size=size,
+        x_rows=slab_rows(mesh, size[0]), **kw)
+    fusion_sweep_merge(state.value, state.weight, cx, cy, cz, rng_tab,
+                       endpoint, scanner_mm, rotation, max_weight=max_weight,
+                       level=level, **kw)
+    return state
+
+
+def slam_step_sharded(state: LocalMapState, points, mask, pretransform, *,
+                      mesh: Mesh, params, size, max_steps=None,
+                      max_isteps=None, scanner_pos=None, up=None,
+                      mode: str = "parity", capture_pose=None):
+    """One SLAM step (fusion, then registration) on the mesh; returns
+    ``(state, pose)``.
+
+    ``mode="fast"``: projective fusion (level grid inside the tilt
+    envelope of ``capture_pose``, the sensor attitude beyond it; a level
+    platform when ``capture_pose`` is None), packed fields and the LM
+    registration.  ``"parity"``: the ray march and Gauss-Newton."""
+    m = params.map
+    if mode == "fast":
+        from ..pipeline.fusion_backend import grid_rotation_for
+        if capture_pose is None:
+            grid_rot, level = torch.eye(3, dtype=torch.float32), True
+        else:
+            grid_rot, level = grid_rotation_for(np.asarray(capture_pose),
+                                                params.lidar.vfov)
+        tsdf_update_projective_sharded(
+            state, points, mask, scanner_pos, grid_rot, mesh=mesh,
+            size=size, tau=m.tau, max_weight=m.max_weight_scaled,
+            resolution=m.resolution, channels=params.lidar.channels,
+            columns=params.lidar.hresolution, vfov_deg=params.lidar.vfov,
+            level=level)
+        fields = precompute_fields_packed_sharded(state, mesh=mesh, tau=m.tau)
+        pose, _iters, _err = register_cloud_packed_sharded(
+            fields, state.pos, state.offset, points, mask, pretransform,
+            mesh=mesh, size=size, resolution=m.resolution, tau=m.tau,
+            max_iterations=params.registration.max_iterations,
+            epsilon=params.registration.epsilon,
+            gather_freeze=params.registration.gather_freeze)
+        return state, pose
+    tsdf_update_sharded(
+        state, points, mask, scanner_pos, up, mesh=mesh, size=size,
+        tau=m.tau, max_weight=m.max_weight_scaled, resolution=m.resolution,
+        max_steps=max_steps, max_isteps=max_isteps,
+        channels=params.lidar.channels, vfov_deg=params.lidar.vfov)
+    pose = register_cloud_sharded(
+        state, points, mask, pretransform, mesh=mesh, size=size,
+        resolution=m.resolution,
+        max_iterations=params.registration.max_iterations,
+        it_weight_gradient=params.registration.it_weight_gradient,
+        epsilon=params.registration.epsilon, mode=mode)
+    return state, pose

@@ -115,7 +115,7 @@ class WarpsenseApp:
                 self.local_map.load_window(
                     np.floor(self.pose[:3, 3] / m.resolution).astype(np.int64))
                 self.initialized = True
-        self.state = self.local_map.device_state(self.device)
+        self.state = self._device_state()
         self.last_tsdf_pose = self.pose.copy()
         self.last_shift_pose = self.pose.copy()
         self.shifted = False
@@ -132,6 +132,11 @@ class WarpsenseApp:
             m.tau, m.resolution, max_range_mm, params.lidar.channels,
             params.lidar.vfov)
         self.eval = RuntimeEvaluator.get_instance()
+
+    def _device_state(self):
+        """The window on the device (a seam: the sharded app places its
+        slab)."""
+        return self.local_map.device_state(self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -327,12 +332,17 @@ class WarpsenseApp:
             err, self._shift_error = self._shift_error, None
             self.last_shift_pose = self._pre_shift_pose
             raise RuntimeError("async map shift failed") from err
-        self.state = self.local_map.detach_device()
+        self.state = self._finish_async_shift()
         self.shifted = True
         self._fields = None      # window moved: registration fields stale
         pending, self._pending_fusion = self._pending_fusion, []
         for pts, mask, pose in pending:
             self._update_tsdf(pts, mask, pose=pose)
+
+    def _finish_async_shift(self):
+        """The post-shift device state of a completed async shift (a seam:
+        the sharded app finishes its staged shift here)."""
+        return self.local_map.detach_device()
 
     def _maybe_shift(self, prof=None) -> None:
         """Shift the ring window once the pose wandered >= map.shift meters
