@@ -17,10 +17,11 @@ Phases (each raises on failure; nothing falls back to the CPU):
    (625 x 625 x 391, tau 1000 mm, its max_weight), which the parity and
    featsense apps run;
 4. fields kernel K2 (packed and exact) against its plain version on the
-   fused map and on seeded windows of full-range values with weight on
-   every face (so every wrap path runs) at 625 x 625 x 235 and at the
-   default 625 x 625 x 391, each at tau 600 and 1000; 0 mismatches
-   required;
+   fused map (also with its weight plane at another offset from a 16-byte
+   boundary than its value plane: the wrapper stages an aligned copy) and
+   on seeded windows of full-range values with weight on every face (so
+   every wrap path runs) at 625 x 625 x 235 and at the default 625 x 625
+   x 391, each at tau 600 and 1000; 0 mismatches required;
 5. kernel and plain times (CUDA events around one call, median of 7; K2
    also per launch in runs of K2_LAUNCHES back-to-back launches), K1
    level and tilt (the general sweep) and K2 at 625 x 625 x 235, K1 level
@@ -31,6 +32,21 @@ Phases (each raises on failure; nothing falls back to the CPU):
    tilt's also under the count without its early-outs; K1 also beside the
    floor of its design's own traffic, sweep_floor_ms; K2 also beside a
    device-to-device copy of as many bytes, copy_ms);
+5b. REGLOOP, the registration kernels K3 (statistics) and K4 (step) on
+   FULL's fused map (packed and exact fields, the fast LM with a coarse
+   phase and the gather freeze) and the default one (parity fields and
+   GN), from 3 seeded pretransforms of 1 degree and 141 mm: (a) K3
+   against its plain version in every mode (full, coarse, gather,
+   cached), c equal, H / g / e within REGLOOP["k3_rtol"], two runs
+   bit-equal; (b) K4 against its plain version at every step of a
+   registration, the flags equal, the pose within REGLOOP["k4_rtol"];
+   (c) the device loop against the host loop (plain versions): equal
+   iterations, poses within 0.5 mm / 1e-4 rad, each loop's time and its
+   synchronizing operations (PyTorch's sync debug mode); then K3, K4,
+   an empty kernel and solve_ex on one 6x6 system timed, beside K3's
+   and K4's bounds.  Every registration of the apps below runs K3 and
+   K4; each app prints its registrations' iterations, host syncs (at
+   most one a chunk of CHUNK iterations, checked) and loop time;
 6. WarpsenseApp(device="cuda") in fast mode at the application config:
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
@@ -85,7 +101,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
 
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
-the calls that ran the general sweep).
+the calls that ran the general sweep).  The sharded paths keep a host
+registration loop, so they launch no K3 or K4.
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -241,6 +258,29 @@ FIELDS_WEIGHT_SHARE = 0.7
 FIELDS_TAUS = (600, 1000)
 # K2 is also timed per launch over runs of this many back-to-back launches
 K2_LAUNCHES = 10
+# REGLOOP: K3 and K4 against their plain versions and the device loop
+# against the host loop, on FULL's fused map (packed and exact fields, the
+# fast LM with a coarse phase of 3 iterations and the gather freeze) and
+# DEFAULT's (parity fields and GN at configs/default.yaml's settings), from
+# 3 seeded pretransforms of 1 degree and 141 mm.  Tolerances: K3's sums
+# run in another order than the plain version's matmul (relative 1e-5,
+# H and g against their largest entry, c exact); K4 and its plain version
+# run the same float32 operations (relative 1e-6 of the pose, the flags
+# equal); the loops: equal iterations, PARITY_POSE_BOUND_MM and 1e-4 rad.
+REGLOOP = dict(seed=9, poses=3, rot_deg=1.0, trans_mm=141.0,
+               coarse_iterations=3, lm_max_iterations=50,
+               cached_step_mm=5.0, k3_rtol=1e-5, k4_rtol=1e-6,
+               rot_bound_rad=1e-4)
+# float32 operations of K3 (csrc/registration.cu) per valid point, counted
+# from its source (arithmetic, conversion, abs each one): fast layouts
+# with the interpolated residual 91 (gradient 6, residual 10, lever 6,
+# cross 9, scales 3, the 29 sums 57), parity 79; invalid points do
+# integer work only.  K4's per step: the partials' 29 columns (one add a
+# row, counted by row) and the lanes' 232, the system 50, the LU 233,
+# xi_to_transform and the pose product 230, the tests 25.
+K3_OPS_FAST = 91
+K3_OPS_PARITY = 79
+K4_OPS_STEP = 770
 
 
 def log(*a) -> None:
@@ -289,7 +329,7 @@ def build_kernels() -> dict:
     from warpsense_tpu_torch import native
     from warpsense_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    names = ("fusion", "fields")
+    names = ("fusion", "fields", "registration")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         jobs = [pool.submit(_build._build, name) for name in names]
         jobs.append(pool.submit(native.build))
@@ -478,11 +518,37 @@ def check_fields(torch, state, tau, name):
     return report
 
 
+def misaligned_weight(torch, state):
+    """``state`` with its weight plane moved to a view that starts 2 bytes
+    past the value plane's offset from a 16-byte boundary (a window cut
+    from a larger buffer at another offset)."""
+    n = state.weight.numel()
+    buf = torch.empty(n + 8, dtype=state.weight.dtype,
+                      device=state.weight.device)
+    shift = ((state.value.data_ptr() - buf.data_ptr()) % 16 // 2 + 1) % 8
+    view = buf[shift:shift + n].view(state.weight.shape)
+    view.copy_(state.weight)
+    if view.data_ptr() % 16 == state.value.data_ptr() % 16:
+        raise AssertionError("the weight view is not misaligned")
+    return state._replace(weight=view)
+
+
 def check_fields_all(torch, state, tau, device):
-    """K2 on the fused map ``state``, then on seeded full-range windows at
-    FULL and at the default shapes, each at tau 600 and 1000.  The seeded
-    windows carry weight on every face, so every wrap path is exercised."""
+    """K2 on the fused map ``state`` (also with its weight plane misaligned
+    against its value plane: the wrapper stages an aligned copy), then on
+    seeded full-range windows at FULL and at the default shapes, each at
+    tau 600 and 1000.  The seeded windows carry weight on every face, so
+    every wrap path is exercised."""
+    from warpsense_tpu_torch.kernels.fields import fields_packed
     report = [check_fields(torch, state, tau, "fused")]
+    copies = fields_packed.staged_copies
+    report.append(check_fields(torch, misaligned_weight(torch, state), tau,
+                               "fused_misaligned_weight"))
+    report[-1]["staged_copies"] = fields_packed.staged_copies - copies
+    if report[-1]["staged_copies"] != 2:
+        raise AssertionError(f"K2 did not stage the misaligned weight: "
+                             f"{report[-1]}")
+    torch.cuda.empty_cache()
     for label, size in (("full", FULL["size"]),
                         ("default", default_fusion_cfg()["size"])):
         seeded = seeded_fields_state(torch, size, device)
@@ -680,6 +746,448 @@ def time_fields_plain(torch, cfg, state, times):
     return times
 
 
+# ------------------------------------------------------------- phase 5b
+def regloop_poses(torch, cfg=None):
+    """REGLOOP's pretransforms: each a rotation of REGLOOP["rot_deg"] about
+    a seeded axis and a translation of REGLOOP["trans_mm"] in a seeded
+    direction."""
+    import numpy as np
+    cfg = cfg or REGLOOP
+    rng = np.random.default_rng(cfg["seed"])
+    poses = []
+    for _ in range(cfg["poses"]):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        a = math.radians(cfg["rot_deg"])
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        pose = np.eye(4)
+        pose[:3, :3] = np.eye(3) + math.sin(a) * K + (1 - math.cos(a)) * K @ K
+        d = rng.normal(size=3)
+        pose[:3, 3] = cfg["trans_mm"] * d / np.linalg.norm(d)
+        poses.append(torch.tensor(pose, dtype=torch.float32))
+    return poses
+
+
+def regloop_problems(torch, full_state, default_state, device):
+    """The three layouts' RegProblems: K2's packed and exact fields of
+    FULL's fused map (the fast LM with a coarse phase and the gather
+    freeze, so one loop runs every K3 mode) and the plain parity fields of
+    DEFAULT's (the parity GN at configs/default.yaml's settings), each
+    with its fused room cloud."""
+    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.ops import registration as treg
+    out = {}
+    pts, mask = room_points(torch, FULL, device)
+    lm = dict(pos=full_state.pos, offset=full_state.offset, points=pts,
+              mask=mask, size=FULL["size"], resolution=FULL["res"],
+              tau=FULL["tau"], interp=True, normalize=False, lm=True,
+              recenter=True, coarse_iterations=REGLOOP["coarse_iterations"],
+              split=True, max_iterations=REGLOOP["lm_max_iterations"],
+              epsilon=0.03, it_weight_gradient=0.0,
+              freeze_step_mm=float(FULL["res"]))
+    out["packed"] = treg.RegProblem(
+        fields=fields_packed(full_state, tau=FULL["tau"]),
+        layout=treg.LAYOUT_PACKED, **lm)
+    out["exact"] = treg.RegProblem(
+        fields=fields_packed(full_state, tau=FULL["tau"], exact=True),
+        layout=treg.LAYOUT_EXACT, **lm)
+    dcfg = default_fusion_cfg()
+    reg = default_params().registration
+    dpts, dmask = room_points(torch, dcfg, device)
+    out["parity"] = treg.RegProblem(
+        fields=treg.precompute_fields(default_state),
+        pos=default_state.pos, offset=default_state.offset, points=dpts,
+        mask=dmask, size=dcfg["size"], resolution=dcfg["res"],
+        tau=dcfg["tau"], layout=treg.LAYOUT_PARITY, interp=False,
+        normalize=False, lm=False, recenter=False, coarse_iterations=0,
+        split=False, max_iterations=reg.max_iterations,
+        epsilon=reg.epsilon, it_weight_gradient=reg.it_weight_gradient,
+        freeze_step_mm=0.0)
+    return out
+
+
+def k3_compare(torch, prob, state, scratch, cache) -> dict:
+    """K3 twice and its plain version at ``state`` (in the mode it
+    holds): c equal, H / g / e within REGLOOP["k3_rtol"] (H and g
+    relative to their largest entry), the two K3 runs bit-equal."""
+    from warpsense_tpu_torch.kernels.registration import reg_stats
+    from warpsense_tpu_torch.ops.registration import (reg_stats_plain,
+                                                      sum_partials)
+    k1 = reg_stats(state, prob, scratch).clone()
+    k2 = reg_stats(state, prob, scratch).clone()
+    plain = reg_stats_plain(state, prob, cache)[0].cpu().double()
+    got = sum_partials(k1.cpu()).double()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+    out = dict(c=float(got[28]), c_plain=float(plain[28]),
+               H_rel=rel(got[:21], plain[:21]),
+               g_rel=rel(got[21:27], plain[21:27]),
+               e_rel=rel(got[27:28], plain[27:28]),
+               repeat_bit_equal=bool(torch.equal(k1, k2)))
+    out["ok"] = (out["c"] == out["c_plain"] and out["c"] > 0
+                 and out["repeat_bit_equal"]
+                 and max(out["H_rel"], out["g_rel"], out["e_rel"])
+                 <= REGLOOP["k3_rtol"])
+    return out
+
+
+def check_k3(torch, probs, poses) -> dict:
+    """REGLOOP (a): K3 against its plain version at every pose in each
+    layout and, for the fast layouts, in each mode (full, coarse, gather,
+    cached: the cache gathered at the pose, evaluated at the pose moved by
+    REGLOOP["cached_step_mm"] in x)."""
+    from warpsense_tpu_torch.ops import registration as treg
+    report = {}
+    for name, prob in probs.items():
+        cases = []
+        for j, pose in enumerate(poses):
+            dev = prob.points.device
+            modes = (("full",) if prob.layout == treg.LAYOUT_PARITY
+                     else ("full", "coarse", "gather", "cached"))
+            split_state, scratch, cache = None, {}, {}
+            for mode in modes:
+                p = prob
+                if mode == "full":
+                    p = prob._replace(coarse_iterations=0, split=False)
+                if mode in ("gather", "cached"):
+                    # one state and one scratch: K3 caches its arguments
+                    if split_state is None:
+                        split_state = treg.init_state(p, pose, dev)
+                        split_state[treg.S_I] = float(p.coarse_iterations)
+                    st, sc, ca = split_state, scratch, cache
+                else:
+                    st, sc, ca = treg.init_state(p, pose, dev), {}, {}
+                if mode == "cached":
+                    st[treg.S_FROZEN] = 1.0
+                    st[treg.S_TRIAL + 3] += REGLOOP["cached_step_mm"]
+                cases.append(dict(pose=j, mode=mode,
+                                  **k3_compare(torch, p, st, sc, ca)))
+        report[name] = cases
+        worst = {k: max(c[k] for c in cases)
+                 for k in ("H_rel", "g_rel", "e_rel")}
+        log(f"[REGLOOP K3 {name}]", json.dumps(dict(
+            cases=len(cases), rtol=REGLOOP["k3_rtol"], **worst,
+            c=[c["c"] for c in cases])))
+        bad = [c for c in cases if not c["ok"]]
+        if bad:
+            raise AssertionError(f"K3 disagrees with its plain version "
+                                 f"({name}): {bad}")
+    return report
+
+
+def check_k4(torch, probs, poses) -> dict:
+    """REGLOOP (b): K4 against its plain version on K3's partials at every
+    step of a registration from the first pose: the flags (improved,
+    finished, frozen, ok) and the count equal, the trial and accepted
+    poses within REGLOOP["k4_rtol"] of the plain step's (relative to the
+    pose's largest entry); how many steps gave the plain step's bits."""
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    from warpsense_tpu_torch.ops import registration as treg
+    flags = (treg.S_I, treg.S_FIN, treg.S_FROZEN, treg.S_OK,
+             treg.S_IMPROVED)
+    report = {}
+    for name, prob in probs.items():
+        st = treg.init_state(prob, poses[0], prob.points.device)
+        scratch = {}
+        steps = bit_equal = 0
+        worst = 0.0
+        while not (st[treg.S_FIN] != 0 or st[treg.S_I]
+                   >= prob.max_iterations):
+            part = reg_stats(st, prob, scratch)
+            ref = st.cpu()
+            treg.reg_step_plain(ref, part.cpu(), prob)
+            reg_step(st, part, prob, scratch)
+            got = st.cpu()
+            for lo in (treg.S_TRIAL, treg.S_ACC):
+                want = ref[lo:lo + 16].double()
+                worst = max(worst, float((got[lo:lo + 16].double() - want)
+                                         .abs().max() / want.abs().max()))
+            if any(float(got[f]) != float(ref[f]) for f in flags):
+                raise AssertionError(f"K4's flags differ from its plain "
+                                     f"version's ({name}, step {steps}): "
+                                     f"{got[:8].tolist()} != "
+                                     f"{ref[:8].tolist()}")
+            steps += 1
+            bit_equal += bool(torch.equal(got, ref))
+        report[name] = dict(steps=steps, bit_equal_steps=bit_equal,
+                            pose_rel=worst, rtol=REGLOOP["k4_rtol"])
+        log(f"[REGLOOP K4 {name}]", json.dumps(report[name]))
+        if worst > REGLOOP["k4_rtol"]:
+            raise AssertionError(f"K4's pose differs from its plain "
+                                 f"version's ({name}): {report[name]}")
+    return report
+
+
+def count_syncs(torch, fn, where=None):
+    """(fn's result, the synchronizing CUDA operations it ran), counted by
+    PyTorch's sync debug mode (every device-to-host copy, host-to-device
+    copy from pageable memory and stream wait warns once); ``where``
+    (a dict) collects each one's Python file:line."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if where is not None:
+        for w in syncs:
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, len(syncs)
+
+
+def rot_err_rad(a, b) -> float:
+    import numpy as np
+    m = a[:3, :3].astype(np.float64).T @ b[:3, :3].astype(np.float64)
+    v = np.array([m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]])
+    return float(np.arcsin(min(1.0, np.linalg.norm(v) / 2.0)))
+
+
+def check_loops(torch, probs, poses) -> dict:
+    """REGLOOP (c): the device loop (K3 + K4, CHUNK iterations a read)
+    against the host loop (the plain versions, the state on the CPU, the
+    statistics on the card) from every pose: equal iteration counts, poses
+    within PARITY_POSE_BOUND_MM and REGLOOP["rot_bound_rad"]; each loop's
+    time (host clock to its last read) and its synchronizing operations."""
+    import numpy as np
+
+    from warpsense_tpu_torch.ops import registration as treg
+    report = {}
+    for name, prob in probs.items():
+        pose_of = treg.S_ACC if prob.lm else treg.S_TRIAL
+        treg.run_registration(prob, poses[0])                 # warm-up
+        runs = []
+        where = {}
+        for j, pose in enumerate(poses):
+            out = {}
+            for host in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (st, head), syncs = count_syncs(
+                    torch, lambda: treg.run_registration(prob, pose,
+                                                         host=host),
+                    None if host else where)
+                out["host" if host else "device"] = dict(
+                    iterations=int(head[treg.S_I]),
+                    ms=(time.perf_counter() - t0) * 1e3, syncs=syncs,
+                    pose=st[pose_of:pose_of + 16].reshape(4, 4).cpu()
+                    .numpy())
+            d, h = out["device"], out["host"]
+            runs.append(dict(
+                pose=j, iterations=d["iterations"],
+                host_iterations=h["iterations"],
+                pose_mm=float(np.abs(d["pose"][:3, 3]
+                                     - h["pose"][:3, 3]).max()),
+                rot_rad=rot_err_rad(d["pose"], h["pose"]),
+                moved_mm=float(np.abs(d["pose"][:3, 3]
+                                      - pose[:3, 3].cpu().numpy()).max()),
+                device_loop_ms=d["ms"], host_loop_ms=h["ms"],
+                device_syncs=d["syncs"], host_syncs=h["syncs"],
+                chunk=treg.CHUNK))
+        report[name] = runs
+        log(f"[REGLOOP loops {name}]", json.dumps(dict(
+            runs=runs, device_syncs_at=where)))
+        for r in runs:
+            if not (r["iterations"] == r["host_iterations"]
+                    and r["pose_mm"] < PARITY_POSE_BOUND_MM
+                    and r["rot_rad"] < REGLOOP["rot_bound_rad"]):
+                raise AssertionError(f"device and host loops differ "
+                                     f"({name}): {r}")
+            if r["device_syncs"] > -(-r["iterations"] // treg.CHUNK) + 1:
+                raise AssertionError(f"the device loop synchronized more "
+                                     f"than once a chunk ({name}): {r}")
+    return report
+
+
+def k3_cost(prob, valid: int, blocks: int) -> tuple:
+    """Bytes and float32 ops of one K3 call: each point's int32 xyz and
+    mask byte read once, each valid point's gathered words (4 B packed, 8
+    exact, 12 parity), the state's trial pose read and the partials
+    written; K3_OPS_* for each valid point (invalid points do integer
+    work only)."""
+    from warpsense_tpu_torch.ops import registration as treg
+    n = prob.points.shape[0]
+    gathered = {treg.LAYOUT_PACKED: 4, treg.LAYOUT_EXACT: 8,
+                treg.LAYOUT_PARITY: 12}[prob.layout]
+    nbytes = 13 * n + gathered * valid + 64 + 4 * treg.PARTIALS * blocks
+    ops = (K3_OPS_PARITY if prob.layout == treg.LAYOUT_PARITY
+           else K3_OPS_FAST) * valid
+    return nbytes, ops
+
+
+def time_host_ms(fn, setup=None, reps=5) -> float:
+    """Median host-clock time of ``fn`` (CPU work) over ``reps`` runs
+    after a warm-up; ``setup`` runs before each, outside the clock."""
+    times = []
+    for _ in range(reps + 1):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[1:])
+    return times[len(times) // 2]
+
+
+def registration_report(launches, name, *, check=True) -> dict:
+    """The registrations of one path from its counts (``read_launches``):
+    their iterations, the device loop's header reads (host syncs) and the
+    loop's host-clock time, each per registration.  With ``check``: K3 and
+    K4 ran, and no registration read the card more than once a chunk of
+    CHUNK iterations (the sum of ceil(iterations / CHUNK) is at most
+    iterations / CHUNK + registrations)."""
+    from warpsense_tpu_torch.ops.registration import CHUNK
+    n = launches["registrations"]
+    rep = dict(registrations=n, iterations=launches["reg_iterations"],
+               syncs=launches["reg_syncs"], chunk=CHUNK,
+               k3_launches=launches["reg_stats"],
+               k4_launches=launches["reg_step"])
+    if n:
+        rep.update(iterations_per_registration=rep["iterations"] / n,
+                   syncs_per_registration=rep["syncs"] / n,
+                   loop_ms_per_registration=launches["reg_seconds"] * 1e3
+                   / n)
+    log(f"[registration {name}]", json.dumps(rep))
+    if check and not (n > 0 and min(rep["k3_launches"],
+                                    rep["k4_launches"]) > 0):
+        raise AssertionError(f"{name}: K3/K4 did not run: {rep}")
+    if check and not (n <= rep["syncs"]
+                      <= rep["iterations"] / CHUNK + n):
+        raise AssertionError(f"{name}: more than one sync a chunk: {rep}")
+    return rep
+
+
+def time_regloop(torch, probs, poses) -> dict:
+    """REGLOOP (e)'s times: K3 in its full mode on the packed FULL problem
+    (the fast app's iteration) and on the parity one, K4, an empty kernel
+    (the launch floor), each as one call between events (``ms``) and per
+    launch in runs of K2_LAUNCHES (``per_launch_ms``); the plain versions;
+    torch.linalg.solve_ex on one 6x6 system (K4's library yardstick); each
+    kernel beside its bound."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.ops import registration as treg
+    dev = probs["packed"].points.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    empty_ms = time_ms(torch, lambda: kreg.launch_empty(stream))
+    empty_pl = time_per_launch(torch, lambda: kreg.launch_empty(stream))
+    for name in ("packed", "parity"):
+        prob = probs[name]._replace(coarse_iterations=0, split=False)
+        st = treg.init_state(prob, poses[0], dev)
+        scratch = {}
+        part = kreg.reg_stats(st, prob, scratch)
+        valid = int(treg.sum_partials(part.cpu())[28])
+        k_ms = time_ms(torch, lambda: kreg.reg_stats(st, prob, scratch))
+        pl_ms = time_per_launch(torch, lambda: kreg.reg_stats(st, prob,
+                                                               scratch))
+        p_ms = time_ms(torch, lambda: treg.reg_stats_plain(st, prob, {}),
+                       reps=5)
+        nbytes, ops = k3_cost(prob, valid, part.shape[0])
+        out[f"K3_{name}"] = dict(
+            points=prob.points.shape[0], valid=valid, ms=k_ms,
+            per_launch_ms=pl_ms, plain_ms=p_ms, library_ms=None,
+            empty_ms=empty_ms, empty_per_launch_ms=empty_pl,
+            **bound(nbytes, ops, k_ms))
+        log(f"[time K3 {name}]", json.dumps(out[f"K3_{name}"]))
+    # K4: one step from a saved state (restored outside the events);
+    # per launch on a GN problem that never finishes (epsilon 0, no cap),
+    # so back-to-back launches each do a step
+    prob = probs["parity"]
+    st0 = treg.init_state(prob, poses[0], dev)
+    scratch = {}
+    part = kreg.reg_stats(st0, prob, scratch).clone()
+    st = st0.clone()
+    k_ms = time_ms(torch, lambda: kreg.reg_step(st, part, prob, scratch),
+                   setup=lambda: st.copy_(st0))
+    endless = prob._replace(epsilon=0.0, max_iterations=2 ** 30)
+    st_e = st0.clone()
+    sc_e = {}
+    pl_ms = time_per_launch(torch, lambda: kreg.reg_step(st_e, part, endless,
+                                                         sc_e))
+    st_p = st0.cpu()
+    part_p = part.cpu()
+    ref = st_p.clone()
+    p_ms = time_host_ms(lambda: treg.reg_step_plain(st_p, part_p, prob),
+                        setup=lambda: st_p.copy_(ref))
+    A = torch.eye(6, device=dev) * 2.0 + 0.1
+    b = torch.ones(6, device=dev)
+    lib_ms = time_ms(torch, lambda: torch.linalg.solve_ex(A, b))
+    lib_pl = time_per_launch(torch, lambda: torch.linalg.solve_ex(A, b))
+    blocks = part.shape[0]
+    out["K4"] = dict(blocks=blocks, ms=k_ms, per_launch_ms=pl_ms,
+                     plain_ms=p_ms, library_ms=lib_ms,
+                     library_per_launch_ms=lib_pl, empty_ms=empty_ms,
+                     empty_per_launch_ms=empty_pl,
+                     **bound(4 * treg.PARTIALS * blocks
+                             + 8 * treg.STATE_LEN,
+                             K4_OPS_STEP + treg.SUMS * blocks, k_ms))
+    log("[time K4]", json.dumps(out["K4"]))
+    # the kernels' own device time (torch.profiler), without the host's
+    # enqueue that bounds the back-to-back runs above
+    prob = probs["packed"]._replace(coarse_iterations=0, split=False)
+    st = treg.init_state(prob, poses[0], dev)
+    sc = {}
+    kreg.reg_stats(st, prob, sc)
+    device_us = kernel_device_us(torch, lambda: (
+        kreg.reg_stats(st, prob, sc), kreg.reg_step(st_e, part, endless,
+                                                    sc_e),
+        kreg.launch_empty(stream)), ("stats_kernel", "step_kernel",
+                                     "empty_kernel"))
+    out["K3_packed"]["device_ms"] = device_us["stats_kernel"] / 1e3
+    out["K4"]["device_ms"] = device_us["step_kernel"] / 1e3
+    for t in out.values():
+        t["empty_device_ms"] = device_us["empty_kernel"] / 1e3
+    log("[time K3/K4 device]", json.dumps(device_us))
+    return out
+
+
+def kernel_device_us(torch, fn, names, reps=50) -> dict:
+    """Mean device time (us) of each kernel whose name holds one of
+    ``names``, over ``reps`` calls of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        for n in names:
+            if n in e.key and t > 0:
+                out[n] = t / e.count
+    missing = [n for n in names if n not in out]
+    if missing:
+        raise AssertionError(f"the profiler saw no {missing}")
+    return out
+
+
+def run_regloop(torch, full_state, default_state, device) -> dict:
+    """REGLOOP: (a) K3, (b) K4 and (c) the device loop against the host
+    loop, then (e)'s times.  Its own launches are not the main paths'."""
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    probs = regloop_problems(torch, full_state, default_state, device)
+    poses = [p.to(device) for p in regloop_poses(torch)]
+    out = dict(k3=check_k3(torch, probs, poses),
+               k4=check_k4(torch, probs, poses),
+               loops=check_loops(torch, probs, poses),
+               times=time_regloop(torch, probs, poses))
+    out["max_abs_err"] = dict(
+        K3=max(max(c["H_rel"], c["g_rel"], c["e_rel"])
+               for cases in out["k3"].values() for c in cases),
+        K4=max(r["pose_rel"] for r in out["k4"].values()))
+    out["launches"] = dict(reg_stats=reg_stats.launches,
+                           reg_step=reg_step.launches)
+    return out
+
+
 # ----------------------------------------------------------------- phase 6
 def app_config(cfg) -> dict:
     """The fast-mode app's configuration as a dict (``Params.from_dict``)."""
@@ -778,6 +1286,8 @@ def run_app(torch, cfg, device):
         from warpsense_tpu_torch.pipeline.fusion_backend import \
             sensor_tilt_deg
         rep["tilt_deg"] = [sensor_tilt_deg(p) for p in poses]
+    rep["registration"] = registration_report(
+        launches, "tilt_app" if "pitch_deg" in cfg else "fast_app")
     log("[app]", json.dumps(rep))
     if not rep["finite"]:
         raise AssertionError("non-finite pose")
@@ -846,19 +1356,37 @@ def default_params(**map_overrides):
 def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    from warpsense_tpu_torch.ops.registration import \
+        reset_registration_counts
     fusion_sweep_merge.launches = 0
     fusion_sweep_merge.general_launches = 0
     fields_packed.launches = 0
+    fields_packed.staged_copies = 0
+    reg_stats.launches = 0
+    reg_step.launches = 0
+    reset_registration_counts()
 
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
-    sweep) and K2's ("fields")."""
+    sweep), K2's ("fields", and its aligned copies "fields_staged"), K3's
+    ("reg_stats") and K4's ("reg_step"), and the device loop's counts:
+    registrations, their iterations, header reads (host syncs) and host
+    seconds."""
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
-            "fields": fields_packed.launches}
+            "fields": fields_packed.launches,
+            "fields_staged": fields_packed.staged_copies,
+            "reg_stats": reg_stats.launches, "reg_step": reg_step.launches,
+            "registrations": run_registration.calls,
+            "reg_iterations": run_registration.iterations,
+            "reg_syncs": run_registration.syncs,
+            "reg_seconds": run_registration.seconds}
 
 
 def run_parity_app(torch, cfg, device):
@@ -898,6 +1426,7 @@ def run_parity_app(torch, cfg, device):
                ate_m=ate_m(poses, gt), launches=launches,
                finite=bool(np.all(np.isfinite(np.stack(poses)))))
     app.terminate()
+    rep["registration"] = registration_report(launches, "parity_app")
     log("[parity_app]", json.dumps(rep))
     if not rep["finite"]:
         raise AssertionError("non-finite parity pose")
@@ -1126,10 +1655,14 @@ def fastsense_run(torch, cfg, params, gt, scans, device, *, replay,
     t0 = time.perf_counter()
     app.terminate()
     torch.cuda.synchronize()
+    launches = read_launches()
     rep = dict(scans=len(scans), scans_per_s=(len(scans) - cfg["warmup"])
                / wall, terminate_s=time.perf_counter() - t0,
                jobs=app._jobs_submitted, published=app.updates_published,
-               launches=read_launches(), ate_m=ate_m(poses, gt),
+               launches=launches, ate_m=ate_m(poses, gt),
+               registration=registration_report(
+                   launches, "fastsense_replay" if replay
+                   else "fastsense_async"),
                finite=bool(np.all(np.isfinite(np.stack(poses)))),
                gn_iterations=app.gn_iterations,
                stage_avg_ms={r["task"]: r["avg"] / 1000.0
@@ -1264,9 +1797,12 @@ def run_slam_eval(torch, device):
         stats = slam_eval.main(args + ["--device", str(device),
                                        "--in-memory-map"])
         torch.cuda.synchronize()
-        stats.update(seconds=time.perf_counter() - t0,
-                     launches=read_launches(),
-                     jax_ate_rmse_m=SLAM_EVAL_JAX_ATE_M[name])
+        launches = read_launches()
+        stats.update(seconds=time.perf_counter() - t0, launches=launches,
+                     jax_ate_rmse_m=SLAM_EVAL_JAX_ATE_M[name],
+                     registration=registration_report(
+                         launches, f"slam_eval_{name}",
+                         check=name == "warpsense"))
         out[name] = stats
         log(f"[slam_eval {name}]", json.dumps(stats))
         bound = 2 * SLAM_EVAL_JAX_ATE_M[name]
@@ -1572,14 +2108,16 @@ def main() -> int:
     k2_times = phase("fields_times", time_fields, torch, FULL, state)
     phase("fields_plain_times", time_fields_plain, torch, FULL, state,
           k2_times)
-    del state
     torch.cuda.empty_cache()
     default_cfg = default_fusion_cfg()
-    state, k1_default = phase("fusion_check_default", check_fusion, torch,
-                              default_cfg, device)
+    state_default, k1_default = phase("fusion_check_default", check_fusion,
+                                      torch, default_cfg, device)
     k1_times_default = phase("fusion_times_default", time_fusion, torch,
-                             default_cfg, state, ("level", "tilt"))
-    del state
+                             default_cfg, state_default, ("level", "tilt"))
+    torch.cuda.empty_cache()
+    regloop = phase("regloop", run_regloop, torch, state, state_default,
+                    device)
+    del state, state_default
     torch.cuda.empty_cache()
     app = phase("fast_app", run_app, torch, APP, device)
     phase("profile", profile_app, torch, APP, device)
@@ -1623,6 +2161,22 @@ def main() -> int:
         entry(k2_times[name]), **{k: k2_times[name][k] for k in (
             "per_launch_ms", "copy_ms", "share_of_copy")})
         for name in ("packed", "exact")}
+    times = regloop["times"]
+
+    def reg_entry(name, t, counter, replaces, also):
+        return {"name": name, "route": "cuda",
+                "source": "warpsense_tpu_torch/csrc/registration.cu",
+                "replaces": replaces, "also_replaces": also,
+                "launches": app["launches"][counter],
+                "launches_by_path": {k: v[counter] for k, v in paths.items()},
+                "max_abs_err": regloop["max_abs_err"][name[-2:]],
+                **{k: t[k] for k in timing_keys},
+                "per_launch_ms": t["per_launch_ms"],
+                "device_ms": t["device_ms"],
+                "empty_kernel_ms": t["empty_ms"],
+                "empty_kernel_per_launch_ms": t["empty_per_launch_ms"],
+                "empty_kernel_device_ms": t["empty_device_ms"]}
+
     kernels = [
         {"name": "fusion_K1", "route": "cuda",
          "source": "warpsense_tpu_torch/csrc/fusion.cu",
@@ -1641,6 +2195,15 @@ def main() -> int:
          "launches_by_path": {k: v["fields"] for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          **k2_cases["packed_full"], "cases": k2_cases},
+        dict(reg_entry("reg_stats_K3", times["K3_packed"], "reg_stats",
+                       "warpsense_tpu/ops/registration.py:454",
+                       ["warpsense_tpu/ops/registration.py:106",
+                        "warpsense_tpu/ops/registration.py:512"]),
+             cases={"parity": {k: times["K3_parity"][k] for k in
+                               timing_keys + ("per_launch_ms", "points")}}),
+        reg_entry("reg_step_K4", times["K4"], "reg_step",
+                  "warpsense_tpu/ops/registration.py:572",
+                  ["warpsense_tpu/ops/registration.py:212"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])

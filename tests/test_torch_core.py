@@ -34,6 +34,7 @@ def test_import_leaves_jax_out():
     mods = ["warpsense_tpu_torch", "warpsense_tpu_torch.pipeline.warpsense",
             "warpsense_tpu_torch.kernels.fusion",
             "warpsense_tpu_torch.kernels.fields",
+            "warpsense_tpu_torch.kernels.registration",
             "warpsense_tpu_torch.interop",
             "warpsense_tpu_torch.io.synthetic",
             "warpsense_tpu_torch.native",

@@ -258,16 +258,26 @@ def test_wrappers_reject_bad_inputs(cuda):
     strided = st._replace(value=st.value.transpose(0, 2))
     with pytest.raises(ValueError):
         fields_packed(strided, tau=TAU)
-    # planes at different offsets from a 16-byte boundary: the kernel
-    # stages value and weight by the same 16-byte copies
+    # planes at different offsets from a 16-byte boundary (the kernel
+    # stages value and weight by the same 16-byte copies): the wrapper
+    # copies the weight to the value's offset, counts the copy, and the
+    # kernel gives the plain version's planes
     n = st.value.numel()
-    flat_v = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
-    flat_w = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
+    rng = np.random.default_rng(2)
+    flat_v = torch.as_tensor(rng.integers(-TAU, TAU + 1, n + 8, np.int16),
+                             device=cuda)
+    flat_w = torch.as_tensor(rng.integers(0, 3, n + 8, np.int16),
+                             device=cuda)
     for ov, ow in ((1, 0), (0, 3), (2, 5)):
         skewed = st._replace(value=flat_v[ov:ov + n].view(st.value.shape),
                              weight=flat_w[ow:ow + n].view(st.value.shape))
-        with pytest.raises(ValueError, match="16-byte"):
-            fields_packed(skewed, tau=TAU)
+        copies = fields_packed.staged_copies
+        for exact in (False, True):
+            got = fields_packed(skewed, tau=TAU, exact=exact)
+            want = (treg.precompute_fields_packed2(skewed) if exact
+                    else treg.precompute_fields_packed(skewed, tau=TAU))
+            assert all(torch.equal(g, p) for g, p in zip(got, want))
+        assert fields_packed.staged_copies == copies + 2
     tall = create_state((1, 1, 200_000), TAU, 0, device=cuda,
                         force_odd=False)
     with pytest.raises(ValueError, match="z extent"):
@@ -580,3 +590,142 @@ def test_k2_on_padded_slabs_matches_whole_window(cuda, exact):
         got = fields_packed(padded, tau=1000, exact=exact)
         for a, b in zip(got, want):
             assert torch.equal(a[1:-1], b[lo:hi])
+
+
+# ------------------------------------------------ registration: K3 and K4
+# A room fused by K1 at 81 x 81 x 65; the fast LM (coarse phase and gather
+# freeze, so one loop runs every K3 mode) on K2's packed and exact fields,
+# the parity GN on the plain parity fields.  Tolerances as chip_smoke's
+# REGLOOP: K3's sums in another order than the plain matmul (relative
+# 1e-5, H and g against their largest entry; c exact), K4 the plain step's
+# float32 operations (relative 1e-6 of the pose, flags equal), the loops
+# equal in iterations and within 0.5 mm / 1e-4 rad.
+
+REG_SIZE = (81, 81, 65)
+
+
+@pytest.fixture(scope="module")
+def reg_problems():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    cuda = torch.device("cuda")
+    kw = dict(tau=TAU, resolution=RES, channels=64, columns=512,
+              vfov_deg=90.0)
+    half = min(REG_SIZE[:2]) * RES * 45 // 100
+    zhalf = REG_SIZE[2] * RES * 2 // 5
+    pts = torch.as_tensor(box_room_cloud(6000, half, zhalf), device=cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    st = create_state(REG_SIZE, TAU, 0, device=cuda, force_odd=False)
+    spos = torch.zeros(3, dtype=torch.int32, device=cuda)
+    rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+        st, pts, mask, spos, torch.eye(3), size=REG_SIZE, **kw)
+    fusion_sweep_merge(st.value, st.weight, cx, cy, cz, rng_tab, endpoint,
+                       smm, torch.eye(3), max_weight=2048, level=True, **kw)
+    common = dict(pos=st.pos, offset=st.offset, points=pts, mask=mask,
+                  size=REG_SIZE, resolution=RES, tau=TAU)
+    lm = dict(common, interp=True, normalize=False, lm=True, recenter=True,
+              coarse_iterations=3, split=True, max_iterations=50,
+              epsilon=0.03, it_weight_gradient=0.0, freeze_step_mm=64.0)
+    gn = dict(common, interp=False, normalize=False, lm=False,
+              recenter=False, coarse_iterations=0, split=False,
+              max_iterations=200, epsilon=0.03, it_weight_gradient=0.1,
+              freeze_step_mm=0.0)
+    pose = torch.eye(4)
+    a = math.radians(1.0) / math.sqrt(3.0)
+    K = torch.tensor([[0.0, -a, a], [a, 0.0, -a], [-a, a, 0.0]])
+    pose[:3, :3] = torch.linalg.matrix_exp(K)
+    pose[:3, 3] = torch.tensor([100.0, -100.0, 0.0])
+    return pose.to(cuda), {
+        "packed": treg.RegProblem(fields=fields_packed(st, tau=TAU),
+                                  layout=treg.LAYOUT_PACKED, **lm),
+        "exact": treg.RegProblem(fields=fields_packed(st, tau=TAU,
+                                                      exact=True),
+                                 layout=treg.LAYOUT_EXACT, **lm),
+        "parity": treg.RegProblem(fields=treg.precompute_fields(st),
+                                  layout=treg.LAYOUT_PARITY, **gn)}
+
+
+def _k3_sums(part):
+    return treg.sum_partials(part.cpu()).double()
+
+
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_k3_matches_plain_in_every_mode(reg_problems, name):
+    from warpsense_tpu_torch.kernels.registration import reg_stats
+    pose, probs = reg_problems
+    prob = probs[name]
+    modes = (["full"] if name == "parity"
+             else ["full", "coarse", "gather", "cached"])
+    split_state, scratch, cache = None, {}, {}
+    for mode in modes:
+        p = prob._replace(coarse_iterations=0, split=False) \
+            if mode == "full" else prob
+        if mode in ("gather", "cached"):
+            if split_state is None:
+                split_state = treg.init_state(p, pose, pose.device)
+                split_state[treg.S_I] = float(p.coarse_iterations)
+            st, sc, ca = split_state, scratch, cache
+        else:
+            st, sc, ca = treg.init_state(p, pose, pose.device), {}, {}
+        if mode == "cached":
+            st[treg.S_FROZEN] = 1.0
+            st[treg.S_TRIAL + 3] += 5.0
+        launches = reg_stats.launches
+        k1 = reg_stats(st, p, sc).clone()
+        k2 = reg_stats(st, p, sc).clone()
+        assert reg_stats.launches == launches + 2
+        assert torch.equal(k1, k2), mode           # a fixed order of sums
+        got = _k3_sums(k1)
+        want = treg.reg_stats_plain(st, p, ca)[0].cpu().double()
+        assert got[28] == want[28] and want[28] > 100, mode
+        for lo, hi in ((0, 21), (21, 27), (27, 28)):
+            err = (got[lo:hi] - want[lo:hi]).abs().max()
+            assert err <= 1e-5 * want[lo:hi].abs().max(), (mode, lo)
+
+
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_k4_matches_plain_along_a_registration(reg_problems, name):
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    pose, probs = reg_problems
+    prob = probs[name]
+    st = treg.init_state(prob, pose, pose.device)
+    scratch = {}
+    steps = 0
+    while not (bool(st[treg.S_FIN] != 0)
+               or int(st[treg.S_I]) >= prob.max_iterations):
+        part = reg_stats(st, prob, scratch)
+        ref = st.cpu()
+        treg.reg_step_plain(ref, part.cpu(), prob)
+        reg_step(st, part, prob, scratch)
+        got = st.cpu()
+        assert torch.equal(got[:8], ref[:8]), (steps, got[:8], ref[:8])
+        for lo in (treg.S_TRIAL, treg.S_ACC):
+            want = ref[lo:lo + 16].double()
+            assert (got[lo:lo + 16].double() - want).abs().max() \
+                <= 1e-6 * want.abs().max(), steps
+        steps += 1
+    assert steps > 2
+
+
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_device_loop_matches_host_loop(reg_problems, name):
+    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    pose, probs = reg_problems
+    prob = probs[name]
+    at = treg.S_ACC if prob.lm else treg.S_TRIAL
+    k3, k4 = reg_stats.launches, reg_step.launches
+    syncs = treg.run_registration.syncs
+    dev, head = treg.run_registration(prob, pose)
+    reads = treg.run_registration.syncs - syncs
+    n = int(head[treg.S_I])
+    assert reads == -(-n // treg.CHUNK)
+    assert reg_stats.launches - k3 == reg_step.launches - k4 == \
+        reads * treg.CHUNK
+    host, hhead = treg.run_registration(prob, pose, host=True)
+    assert int(hhead[treg.S_I]) == n
+    a = dev[at:at + 16].reshape(4, 4).cpu().double()
+    b = host[at:at + 16].reshape(4, 4).double()
+    assert (a[:3, 3] - b[:3, 3]).abs().max() < 0.5
+    assert (a[:3, :3].T @ b[:3, :3] - torch.eye(3, dtype=torch.float64)
+            ).abs().max() < 1e-4
+    assert (a[:3, 3] - pose[:3, 3].cpu()).abs().max() > 5.0   # it moved

@@ -4,7 +4,9 @@ fields from the map window.
 Replaces the TPU kernel ``warpsense_tpu/kernels/fields_pallas.py``
 ``_rolling_kernel`` in both modes (packed one-plane and exact two-plane).
 A CUDA state launches the kernel (or raises); a CPU state runs the plain
-PyTorch versions ``ops/registration.precompute_fields_packed{,2}``.
+PyTorch versions ``ops/registration.precompute_fields_packed{,2}``.  A
+weight plane at another offset from a 16-byte boundary than the value
+plane is first copied to the value's offset (``staged_copies`` counts it).
 
 ``plan_neighbors`` is the plain model of the kernel's addressing (its tile
 plan, the staged halo, the z counter and the three wrap rules);
@@ -65,9 +67,8 @@ def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
                                            and weight.is_contiguous()):
         raise ValueError("value/weight must be contiguous and of one shape")
     if value.data_ptr() % 16 != weight.data_ptr() % 16:
-        raise ValueError("value/weight must start at the same offset from "
-                         "a 16-byte boundary (the kernel stages both by "
-                         "16-byte copies)")
+        weight = _aligned_like(weight, value)
+        fields_packed.staged_copies += 1
     X, Y, Z = value.shape
     if X * Y * Z > _build.MAX_VOXELS:
         raise ValueError("window exceeds the kernel's 32-bit voxel index")
@@ -88,6 +89,20 @@ def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
 
 
 fields_packed.launches = 0
+fields_packed.staged_copies = 0
+
+
+def _aligned_like(weight: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """A copy of ``weight`` that starts at ``value``'s offset from a
+    16-byte boundary: the kernel stages both planes by the same 16-byte
+    copies, so a window whose planes were cut at different offsets (a view
+    into a larger buffer) runs on this copy."""
+    n = weight.numel()
+    buf = torch.empty(n + 8, dtype=weight.dtype, device=weight.device)
+    shift = (value.data_ptr() - buf.data_ptr()) % 16 // 2
+    out = buf[shift:shift + n].view(weight.shape)
+    out.copy_(weight)
+    return out
 
 
 class FieldsPlan(NamedTuple):

@@ -39,7 +39,8 @@ import torch.distributed as dist
 
 from ..map.local_map import LocalMapState, ring_coords
 from ..ops.registration import (PackedFields, PackedFields2,
-                                RegistrationFields, _gn_loop, _lm_loop,
+                                RegistrationFields, _gn_loop_host,
+                                _lm_loop_host,
                                 jacobian_stats_fields, make_packed_stats,
                                 make_packed_stats_split, precompute_fields)
 from ..ops.tsdf import tsdf_update
@@ -221,10 +222,10 @@ def register_cloud_sharded(state: LocalMapState, points, mask, pretransform,
             resolution=resolution, normalize_gradient=mode == "fast",
             index_fn=index_fn))
 
-    pose, _ = _gn_loop(stats, pretransform.to(mesh.device),
-                       max_iterations=max_iterations,
-                       it_weight_gradient=it_weight_gradient,
-                       epsilon=epsilon, mode=mode)
+    pose, _ = _gn_loop_host(stats, pretransform.to(mesh.device),
+                            max_iterations=max_iterations,
+                            it_weight_gradient=it_weight_gradient,
+                            epsilon=epsilon, mode=mode)
     return pose
 
 
@@ -285,9 +286,9 @@ def register_cloud_packed_sharded(fields, pos, offset, points, mask,
             return _reduced(mesh, eval_local(cache, total))
 
         split = (gather_fn, eval_fn)
-    return _lm_loop(stats, pretransform.to(mesh.device),
-                    max_iterations=max_iterations, epsilon=epsilon,
-                    split=split, freeze_step_mm=float(resolution))
+    return _lm_loop_host(stats, pretransform.to(mesh.device),
+                         max_iterations=max_iterations, epsilon=epsilon,
+                         split=split, freeze_step_mm=float(resolution))
 
 
 def tsdf_update_projective_sharded(
