@@ -32,21 +32,26 @@ Phases (each raises on failure; nothing falls back to the CPU):
    tilt's also under the count without its early-outs; K1 also beside the
    floor of its design's own traffic, sweep_floor_ms; K2 also beside a
    device-to-device copy of as many bytes, copy_ms);
-5b. REGLOOP, the registration kernels K3 (statistics) and K4 (step) on
-   FULL's fused map (packed and exact fields, the fast LM with a coarse
-   phase and the gather freeze) and the default one (parity fields and
-   GN), from 3 seeded pretransforms of 1 degree and 141 mm: (a) K3
-   against its plain version in every mode (full, coarse, gather,
-   cached), c equal, H / g / e within REGLOOP["k3_rtol"], two runs
-   bit-equal; (b) K4 against its plain version at every step of a
-   registration, the flags equal, the pose within REGLOOP["k4_rtol"];
-   (c) the device loop against the host loop (plain versions): equal
-   iterations, poses within 0.5 mm / 1e-4 rad, each loop's time and its
-   synchronizing operations (PyTorch's sync debug mode); then K3, K4,
-   an empty kernel and solve_ex on one 6x6 system timed, beside K3's
-   and K4's bounds.  Every registration of the apps below runs K3 and
-   K4; each app prints its registrations' iterations, host syncs (at
-   most one a chunk of CHUNK iterations, checked) and loop time;
+5b. REGLOOP, the registration loop kernel (one launch a registration:
+   K3, the statistics, and K4, the step, of every iteration) on FULL's
+   fused map (packed and exact fields, the fast LM with a coarse phase and
+   the gather freeze) and the default one (parity fields and GN), from 3
+   seeded pretransforms of 1 degree and 141 mm (the LM also from two
+   starts near its solution, where it freezes), each run traced: (a)
+   each iteration's statistics against their plain version at the traced
+   carry, every mode run (full, coarse, gather, cached), c equal, H / g /
+   e within REGLOOP["k3_rtol"], a second launch tracing the same bits;
+   (b) every traced step replayed by the plain step equal to the bit;
+   (c) against the host loop (plain versions): equal iterations, poses
+   within 0.5 mm / 1e-4 rad, the first step at which their decisions
+   part and its margins, each loop's time, the loop kernel's
+   synchronizing operations (PyTorch's sync debug mode: exactly one, the
+   header read); then the loop kernel timed per registration and per
+   iteration, beside its device time, the empty cluster loop and its
+   bound, and the plain versions, an empty kernel and
+   solve_ex on one 6x6 system.  Every registration of the apps below is
+   one launch of the loop kernel and one header read (checked); each app
+   prints its registrations' iterations, host syncs and loop time;
 6. WarpsenseApp(device="cuda") in fast mode at the application config:
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
@@ -102,7 +107,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
 the calls that ran the general sweep).  The sharded paths keep a host
-registration loop, so they launch no K3 or K4.
+registration loop, so they launch no loop kernel.
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -258,26 +263,29 @@ FIELDS_WEIGHT_SHARE = 0.7
 FIELDS_TAUS = (600, 1000)
 # K2 is also timed per launch over runs of this many back-to-back launches
 K2_LAUNCHES = 10
-# REGLOOP: K3 and K4 against their plain versions and the device loop
-# against the host loop, on FULL's fused map (packed and exact fields, the
-# fast LM with a coarse phase of 3 iterations and the gather freeze) and
-# DEFAULT's (parity fields and GN at configs/default.yaml's settings), from
-# 3 seeded pretransforms of 1 degree and 141 mm.  Tolerances: K3's sums
-# run in another order than the plain version's matmul (relative 1e-5,
-# H and g against their largest entry, c exact); K4 and its plain version
-# run the same float32 operations (relative 1e-6 of the pose, the flags
-# equal); the loops: equal iterations, PARITY_POSE_BOUND_MM and 1e-4 rad.
+# REGLOOP: the loop kernel (K3, the statistics, and K4, the step, in one
+# launch a registration) against the plain versions and the host loop, on
+# FULL's fused map (packed and exact fields, the fast LM with a coarse
+# phase of 3 iterations and the gather freeze) and DEFAULT's (parity fields
+# and GN at configs/default.yaml's settings), from 3 seeded pretransforms
+# of 1 degree and 141 mm; the LM also from the host loop's end pose of the
+# first moved by each of near_mm, where its steps fall below the freeze
+# before it stops (so the cached mode runs).  Tolerances: K3's sums run in
+# another order than the plain version's matmul (relative 1e-5, H and g
+# against their largest entry, c exact); K4 and its plain version run the
+# same float32 operations (every traced step equal to the bit); the loops:
+# equal iterations, PARITY_POSE_BOUND_MM and 1e-4 rad.
 REGLOOP = dict(seed=9, poses=3, rot_deg=1.0, trans_mm=141.0,
                coarse_iterations=3, lm_max_iterations=50,
-               cached_step_mm=5.0, k3_rtol=1e-5, k4_rtol=1e-6,
-               rot_bound_rad=1e-4)
+               near_mm=((8.0, -6.0, 4.0), (20.0, 10.0, -15.0)),
+               k3_rtol=1e-5, rot_bound_rad=1e-4)
 # float32 operations of K3 (csrc/registration.cu) per valid point, counted
 # from its source (arithmetic, conversion, abs each one): fast layouts
 # with the interpolated residual 91 (gradient 6, residual 10, lever 6,
 # cross 9, scales 3, the 29 sums 57), parity 79; invalid points do
-# integer work only.  K4's per step: the partials' 29 columns (one add a
-# row, counted by row) and the lanes' 232, the system 50, the LU 233,
-# xi_to_transform and the pose product 230, the tests 25.
+# integer work only.  K4's per step: the lanes' sums of the 29 columns
+# 232 (plus one add a column a CTA row, counted by row), the system 50, the
+# LU 233, xi_to_transform and the pose product 230, the tests 25.
 K3_OPS_FAST = 91
 K3_OPS_PARITY = 79
 K4_OPS_STEP = 770
@@ -807,119 +815,6 @@ def regloop_problems(torch, full_state, default_state, device):
     return out
 
 
-def k3_compare(torch, prob, state, scratch, cache) -> dict:
-    """K3 twice and its plain version at ``state`` (in the mode it
-    holds): c equal, H / g / e within REGLOOP["k3_rtol"] (H and g
-    relative to their largest entry), the two K3 runs bit-equal."""
-    from warpsense_tpu_torch.kernels.registration import reg_stats
-    from warpsense_tpu_torch.ops.registration import (reg_stats_plain,
-                                                      sum_partials)
-    k1 = reg_stats(state, prob, scratch).clone()
-    k2 = reg_stats(state, prob, scratch).clone()
-    plain = reg_stats_plain(state, prob, cache)[0].cpu().double()
-    got = sum_partials(k1.cpu()).double()
-
-    def rel(a, b):
-        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
-    out = dict(c=float(got[28]), c_plain=float(plain[28]),
-               H_rel=rel(got[:21], plain[:21]),
-               g_rel=rel(got[21:27], plain[21:27]),
-               e_rel=rel(got[27:28], plain[27:28]),
-               repeat_bit_equal=bool(torch.equal(k1, k2)))
-    out["ok"] = (out["c"] == out["c_plain"] and out["c"] > 0
-                 and out["repeat_bit_equal"]
-                 and max(out["H_rel"], out["g_rel"], out["e_rel"])
-                 <= REGLOOP["k3_rtol"])
-    return out
-
-
-def check_k3(torch, probs, poses) -> dict:
-    """REGLOOP (a): K3 against its plain version at every pose in each
-    layout and, for the fast layouts, in each mode (full, coarse, gather,
-    cached: the cache gathered at the pose, evaluated at the pose moved by
-    REGLOOP["cached_step_mm"] in x)."""
-    from warpsense_tpu_torch.ops import registration as treg
-    report = {}
-    for name, prob in probs.items():
-        cases = []
-        for j, pose in enumerate(poses):
-            dev = prob.points.device
-            modes = (("full",) if prob.layout == treg.LAYOUT_PARITY
-                     else ("full", "coarse", "gather", "cached"))
-            split_state, scratch, cache = None, {}, {}
-            for mode in modes:
-                p = prob
-                if mode == "full":
-                    p = prob._replace(coarse_iterations=0, split=False)
-                if mode in ("gather", "cached"):
-                    # one state and one scratch: K3 caches its arguments
-                    if split_state is None:
-                        split_state = treg.init_state(p, pose, dev)
-                        split_state[treg.S_I] = float(p.coarse_iterations)
-                    st, sc, ca = split_state, scratch, cache
-                else:
-                    st, sc, ca = treg.init_state(p, pose, dev), {}, {}
-                if mode == "cached":
-                    st[treg.S_FROZEN] = 1.0
-                    st[treg.S_TRIAL + 3] += REGLOOP["cached_step_mm"]
-                cases.append(dict(pose=j, mode=mode,
-                                  **k3_compare(torch, p, st, sc, ca)))
-        report[name] = cases
-        worst = {k: max(c[k] for c in cases)
-                 for k in ("H_rel", "g_rel", "e_rel")}
-        log(f"[REGLOOP K3 {name}]", json.dumps(dict(
-            cases=len(cases), rtol=REGLOOP["k3_rtol"], **worst,
-            c=[c["c"] for c in cases])))
-        bad = [c for c in cases if not c["ok"]]
-        if bad:
-            raise AssertionError(f"K3 disagrees with its plain version "
-                                 f"({name}): {bad}")
-    return report
-
-
-def check_k4(torch, probs, poses) -> dict:
-    """REGLOOP (b): K4 against its plain version on K3's partials at every
-    step of a registration from the first pose: the flags (improved,
-    finished, frozen, ok) and the count equal, the trial and accepted
-    poses within REGLOOP["k4_rtol"] of the plain step's (relative to the
-    pose's largest entry); how many steps gave the plain step's bits."""
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
-    from warpsense_tpu_torch.ops import registration as treg
-    flags = (treg.S_I, treg.S_FIN, treg.S_FROZEN, treg.S_OK,
-             treg.S_IMPROVED)
-    report = {}
-    for name, prob in probs.items():
-        st = treg.init_state(prob, poses[0], prob.points.device)
-        scratch = {}
-        steps = bit_equal = 0
-        worst = 0.0
-        while not (st[treg.S_FIN] != 0 or st[treg.S_I]
-                   >= prob.max_iterations):
-            part = reg_stats(st, prob, scratch)
-            ref = st.cpu()
-            treg.reg_step_plain(ref, part.cpu(), prob)
-            reg_step(st, part, prob, scratch)
-            got = st.cpu()
-            for lo in (treg.S_TRIAL, treg.S_ACC):
-                want = ref[lo:lo + 16].double()
-                worst = max(worst, float((got[lo:lo + 16].double() - want)
-                                         .abs().max() / want.abs().max()))
-            if any(float(got[f]) != float(ref[f]) for f in flags):
-                raise AssertionError(f"K4's flags differ from its plain "
-                                     f"version's ({name}, step {steps}): "
-                                     f"{got[:8].tolist()} != "
-                                     f"{ref[:8].tolist()}")
-            steps += 1
-            bit_equal += bool(torch.equal(got, ref))
-        report[name] = dict(steps=steps, bit_equal_steps=bit_equal,
-                            pose_rel=worst, rtol=REGLOOP["k4_rtol"])
-        log(f"[REGLOOP K4 {name}]", json.dumps(report[name]))
-        if worst > REGLOOP["k4_rtol"]:
-            raise AssertionError(f"K4's pose differs from its plain "
-                                 f"version's ({name}): {report[name]}")
-    return report
-
-
 def count_syncs(torch, fn, where=None):
     """(fn's result, the synchronizing CUDA operations it ran), counted by
     PyTorch's sync debug mode (every device-to-host copy, host-to-device
@@ -949,75 +844,275 @@ def rot_err_rad(a, b) -> float:
     return float(np.arcsin(min(1.0, np.linalg.norm(v) / 2.0)))
 
 
+def loop_traced(torch, prob, pose, where=None):
+    """One registration through ``run_registration`` with a trace:
+    (state, header, trace, synchronizing operations)."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.ops import registration as treg
+    trace = torch.zeros((prob.max_iterations, kreg.TRACE_WIDTH),
+                        device=pose.device)
+    (st, head), syncs = count_syncs(torch, lambda: treg.run_registration(
+        prob, pose, trace=trace), where)
+    return st, head, trace, syncs
+
+
+def trace_stats(prob, trace, iterations) -> dict:
+    """REGLOOP (a) on one traced run (``ops/registration.trace_stats``):
+    c equal and H / g / e within REGLOOP["k3_rtol"] in every iteration;
+    the worst of each, the modes the run went through, each iteration's
+    mode and c (valid points) and the iterations that fail."""
+    from warpsense_tpu_torch.ops import registration as treg
+    its = treg.trace_stats(trace, iterations, prob)
+    keys = ("H_rel", "g_rel", "e_rel")
+    worst = {k: max((r[k] for r in its), default=0.0) for k in keys}
+    bad = [dict(iteration=k, **r) for k, r in enumerate(its)
+           if not (r["c"] == r["c_plain"] and r["c"] > 0
+                   and max(r[k] for k in keys) <= REGLOOP["k3_rtol"])]
+    modes = [r["mode"] for r in its]
+    return dict(worst, modes=sorted(set(modes)), mode_by_iteration=modes,
+                valid=[int(r["c"]) for r in its], bad=bad)
+
+
+def step_margins(prob, tests) -> dict:
+    """Each test of one step (``reg_step_plain``'s returned values) as a
+    signed margin: below 0 the test holds.  LM: accept (err - acc_err),
+    window (the larger distance to prev[2] and prev[0], less epsilon),
+    tiny and freeze (rot2 and tr2 less their thresholds); GN: window."""
+    import numpy as np
+    f = np.float32
+    t = {k: (v.double().numpy() if hasattr(v, "double") else v)
+         for k, v in tests.items()}
+    err = t["err2"] if prob.lm else t["err"]
+    prev = t["prev"]
+    out = dict(window=float(max(abs(err - prev[2]), abs(err - prev[0]))
+                            - f(prob.epsilon)))
+    if prob.lm:
+        out.update(accept=float(t["err"] - t["acc_err"]),
+                   tiny_rot=float(t["rot2"] - f(1e-7)),
+                   tiny_tr=float(t["tr2"] - f(0.25)),
+                   freeze_tr=float(t["tr2"] - f(prob.freeze_step_mm ** 2)),
+                   freeze_rot=float(t["rot2"] - f(1e-6)))
+    return out
+
+
+def damped_condition(prob, before, after, rows) -> float:
+    """The 2-norm condition number (float64) of the damped system one step
+    solved: LM the accepted H after the step with the step's alpha times
+    its diagonal (plus 1e-12); GN H from the step's rows plus alpha c D^2
+    (alpha before the step)."""
+    import numpy as np
+
+    from warpsense_tpu_torch.ops import registration as treg
+    if prob.lm:
+        A = after[treg.S_ACCH:treg.S_ACCH + 36].double().numpy().reshape(6, 6)
+        d = np.diag(A).copy()
+        A[np.diag_indices(6)] = d + float(after[treg.S_ALPHA]) * (d + 1e-12)
+    else:
+        tot = treg.sum_partials(rows.reshape(-1, treg.PARTIALS)).double()
+        A = tot[treg._FULL].numpy().reshape(6, 6)
+        D2 = np.array([treg._SC ** 2] * 3 + [treg._SG ** 2] * 3)
+        A[np.diag_indices(6)] += float(before[treg.S_ALPHA]) * float(
+            tot[28]) * D2
+    return float(np.linalg.cond(A))
+
+
+def cell_changes(torch, prob, a, b) -> dict:
+    """What the trial poses of two carries change of the cloud's discrete
+    state: the entries of the fixed-point matrix trunc(T * 32768) that
+    differ, and the points (of all, mask aside) whose transformed integer
+    mm or whose voxel differ."""
+    from warpsense_tpu_torch.core.consts import MATRIX_RESOLUTION
+    from warpsense_tpu_torch.core.geometry import transform_point_fixed
+    from warpsense_tpu_torch.ops import registration as treg
+    out = []
+    for c in (a, b):
+        T = c[treg.S_TRIAL:treg.S_TRIAL + 16].reshape(4, 4).to(
+            prob.points.device)
+        m = torch.trunc(T * MATRIX_RESOLUTION).to(torch.int32)
+        pts = transform_point_fixed(prob.points, m)
+        out.append((m, pts, torch.div(pts, prob.resolution,
+                                      rounding_mode="floor")))
+    return dict(matrix_entries=int((out[0][0] != out[1][0]).sum()),
+                points_mm=int((out[0][1] != out[1][1]).any(1).sum()),
+                points_voxel=int((out[0][2] != out[1][2]).any(1).sum()),
+                points=int(prob.points.shape[0]))
+
+
+def loop_parting(prob, dev, host) -> dict:
+    """Where the loop kernel's run and the host loop's part.  A decision:
+    the first step after which a flag of their carries (finished, frozen,
+    improved, ok) differs, with each side's margins at that step
+    (``step_margins``) and the pose difference before it.  Without one,
+    where their poses grow apart by more than 1e-3 mm at the end: each
+    step's pose difference, the first step after which it reaches a tenth
+    of the last, that step's damped system's condition number and the
+    relative difference of the two runs' statistics there (the float
+    order's part, amplified by the solve), and the first step whose
+    statistics differ by more than 1e-4 relative with what the two trial
+    poses change of the cloud there (``cell_changes``).  None when the
+    runs end within 1e-3 mm with every decision equal.  ``dev`` and
+    ``host``: (end state, trace, the replay's tests)."""
+    import torch
+
+    from warpsense_tpu_torch.ops import registration as treg
+    flags = {"finished": treg.S_FIN, "frozen": treg.S_FROZEN,
+             "improved": treg.S_IMPROVED, "ok": treg.S_OK}
+    pose_of = treg.S_ACC if prob.lm else treg.S_TRIAL
+
+    def carry(run, k):
+        st, tr, _ = run
+        return (tr[k, :treg.STATE_LEN] if k < int(st[treg.S_I]) else st).cpu()
+
+    def pose_mm(a, b):
+        return float((a[pose_of:pose_of + 16] - b[pose_of:pose_of + 16])
+                     .reshape(4, 4)[:3, 3].abs().max())
+    n = min(int(dev[0][treg.S_I]), int(host[0][treg.S_I]))
+    for k in range(n):
+        a, b = carry(dev, k + 1), carry(host, k + 1)
+        differ = [f for f, i in flags.items() if float(a[i]) != float(b[i])]
+        if differ:
+            return dict(step=k, flags=differ,
+                        margins_device=step_margins(prob, dev[2][k]),
+                        margins_host=step_margins(prob, host[2][k]),
+                        pose_mm_before=pose_mm(carry(dev, k),
+                                               carry(host, k)))
+    by_step = [pose_mm(carry(dev, k + 1), carry(host, k + 1))
+               for k in range(n)]
+    if not by_step or by_step[-1] < 1e-3:
+        return None
+    def stats_rel(j):
+        sd, sh = (treg.sum_partials(run[1][j, treg.STATE_LEN:].cpu()
+                                    .reshape(-1, treg.PARTIALS)).double()
+                  for run in (dev, host))
+        return float((sd[:27] - sh[:27]).abs().max() / sh[:27].abs().max())
+    rel_by_step = [stats_rel(j) for j in range(n)]
+    k = next(j for j, d in enumerate(by_step) if d >= 0.1 * by_step[-1])
+    ks = next((j for j, r in enumerate(rel_by_step) if r > 1e-4), None)
+    return dict(step=None, flags=[], pose_mm_by_step=by_step,
+                stats_rel_by_step=rel_by_step, grows_at=k,
+                condition=damped_condition(
+                    prob, carry(dev, k), carry(dev, k + 1),
+                    dev[1][k, treg.STATE_LEN:].cpu()),
+                stats_part_at=ks,
+                cell_changes=None if ks is None else cell_changes(
+                    torch, prob, carry(dev, ks), carry(host, ks)))
+
+
 def check_loops(torch, probs, poses) -> dict:
-    """REGLOOP (c): the device loop (K3 + K4, CHUNK iterations a read)
-    against the host loop (the plain versions, the state on the CPU, the
-    statistics on the card) from every pose: equal iteration counts, poses
-    within PARITY_POSE_BOUND_MM and REGLOOP["rot_bound_rad"]; each loop's
-    time (host clock to its last read) and its synchronizing operations."""
+    """REGLOOP (a)-(c) from every start in each layout (the LM's also near
+    its solution: REGLOOP["near_mm"]), each registration
+    one launch of the loop kernel with a trace: (a) ``trace_stats``, and
+    a second launch tracing the same bits; (b) every traced step replayed
+    by reg_step_plain (``replay_trace``) equal to the bit; (c) against the
+    host loop (the plain versions, the state on the CPU, the statistics
+    on the card): equal iterations, poses within PARITY_POSE_BOUND_MM and
+    REGLOOP["rot_bound_rad"], the first step at which their decisions
+    part (``loop_parting``); each loop's host-clock time and the loop
+    kernel's synchronizing operations (one header read)."""
     import numpy as np
 
     from warpsense_tpu_torch.ops import registration as treg
     report = {}
     for name, prob in probs.items():
         pose_of = treg.S_ACC if prob.lm else treg.S_TRIAL
-        treg.run_registration(prob, poses[0])                 # warm-up
-        runs = []
-        where = {}
-        for j, pose in enumerate(poses):
-            out = {}
-            for host in (False, True):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                (st, head), syncs = count_syncs(
-                    torch, lambda: treg.run_registration(prob, pose,
-                                                         host=host),
-                    None if host else where)
-                out["host" if host else "device"] = dict(
-                    iterations=int(head[treg.S_I]),
-                    ms=(time.perf_counter() - t0) * 1e3, syncs=syncs,
-                    pose=st[pose_of:pose_of + 16].reshape(4, 4).cpu()
-                    .numpy())
-            d, h = out["device"], out["host"]
+        loop_traced(torch, prob, poses[0])                  # warm-up
+        runs, where = [], {}
+        starts = list(poses)
+        if prob.lm:
+            end = treg.run_registration(prob, poses[0], host=True)[0]
+            for d in REGLOOP["near_mm"]:
+                near = end[treg.S_ACC:treg.S_ACC + 16].reshape(4, 4).clone()
+                near[:3, 3] += torch.tensor(d)
+                starts.append(near.to(poses[0].device))
+        for j, pose in enumerate(starts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, head, trace, syncs = loop_traced(torch, prob, pose,
+                                                 where=where)
+            dev_ms = (time.perf_counter() - t0) * 1e3
+            st2, _, trace2, _ = loop_traced(torch, prob, pose)
+            n = int(head[treg.S_I])
+            stats = trace_stats(prob, trace, n)
+            _, differ, tests, step_err = treg.replay_trace(trace, st,
+                                                           prob)
+            htrace = torch.zeros((prob.max_iterations, treg.trace_width(1)))
+            t0 = time.perf_counter()
+            hst, hhead = treg.run_registration(prob, pose, host=True,
+                                               trace=htrace)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            _, hdiffer, htests, _ = treg.replay_trace(htrace, hst, prob)
+            d = st[pose_of:pose_of + 16].reshape(4, 4).cpu().numpy()
+            h = hst[pose_of:pose_of + 16].reshape(4, 4).numpy()
             runs.append(dict(
-                pose=j, iterations=d["iterations"],
-                host_iterations=h["iterations"],
-                pose_mm=float(np.abs(d["pose"][:3, 3]
-                                     - h["pose"][:3, 3]).max()),
-                rot_rad=rot_err_rad(d["pose"], h["pose"]),
-                moved_mm=float(np.abs(d["pose"][:3, 3]
-                                      - pose[:3, 3].cpu().numpy()).max()),
-                device_loop_ms=d["ms"], host_loop_ms=h["ms"],
-                device_syncs=d["syncs"], host_syncs=h["syncs"],
-                chunk=treg.CHUNK))
+                pose=j, iterations=n, host_iterations=int(hhead[treg.S_I]),
+                pose_mm=float(np.abs(d[:3, 3] - h[:3, 3]).max()),
+                rot_rad=rot_err_rad(d, h),
+                moved_mm=float(np.abs(d[:3, 3] - pose[:3, 3].cpu().numpy())
+                               .max()),
+                repeat_bit_equal=bool(torch.equal(st, st2)
+                                      and torch.equal(trace, trace2)),
+                steps_replayed=len(tests), steps_differ=differ,
+                step_max_abs_err=step_err,
+                host_steps_differ=hdiffer,
+                parting=loop_parting(prob, (st, trace, tests),
+                                     (hst, htrace, htests)),
+                device_loop_ms=dev_ms, host_loop_ms=host_ms,
+                device_syncs=syncs, **{k: stats[k] for k in (
+                    "H_rel", "g_rel", "e_rel", "modes", "valid", "bad")}))
         report[name] = runs
-        log(f"[REGLOOP loops {name}]", json.dumps(dict(
-            runs=runs, device_syncs_at=where)))
+        log(f"[REGLOOP {name}]", json.dumps(dict(
+            runs=runs, device_syncs_at=where, k3_rtol=REGLOOP["k3_rtol"])))
         for r in runs:
+            if r["bad"] or not r["repeat_bit_equal"]:
+                raise AssertionError(f"the loop kernel's statistics differ "
+                                     f"from the plain version's ({name}): "
+                                     f"{r}")
+            if r["steps_differ"] or r["host_steps_differ"] \
+                    or r["steps_replayed"] != r["iterations"]:
+                raise AssertionError(f"a traced step differs from the "
+                                     f"plain step ({name}): {r}")
             if not (r["iterations"] == r["host_iterations"]
                     and r["pose_mm"] < PARITY_POSE_BOUND_MM
                     and r["rot_rad"] < REGLOOP["rot_bound_rad"]):
-                raise AssertionError(f"device and host loops differ "
-                                     f"({name}): {r}")
-            if r["device_syncs"] > -(-r["iterations"] // treg.CHUNK) + 1:
-                raise AssertionError(f"the device loop synchronized more "
-                                     f"than once a chunk ({name}): {r}")
+                raise AssertionError(f"the loop kernel and the host loop "
+                                     f"differ ({name}): {r}")
+            # the header read, and nothing else
+            if r["device_syncs"] != 1:
+                raise AssertionError(f"the loop kernel's registration "
+                                     f"synchronized {r['device_syncs']} "
+                                     f"times ({name}; at {where})")
+    modes = set().union(*(r["modes"] for runs in report.values()
+                          for r in runs))
+    if modes != {"full", "coarse", "gather", "cached"}:
+        raise AssertionError(f"REGLOOP ran the statistics in {modes} only")
     return report
 
 
-def k3_cost(prob, valid: int, blocks: int) -> tuple:
-    """Bytes and float32 ops of one K3 call: each point's int32 xyz and
-    mask byte read once, each valid point's gathered words (4 B packed, 8
-    exact, 12 parity), the state's trial pose read and the partials
-    written; K3_OPS_* for each valid point (invalid points do integer
-    work only)."""
+def loop_cost(prob, modes, valid) -> tuple:
+    """Bytes and float32 ops of one registration of the loop kernel, from
+    its trace's modes and valid counts: per iteration each point's int32
+    xyz and mask byte read once (every 4th point in the coarse phase), each
+    valid point's gathered words (4 B packed, 8 exact, 12 parity), the
+    gather's per-point cache written (29 B) or the cached mode's read (its
+    valid byte a point, 28 B a valid point) in place of mask and gather;
+    the carry read and written once; K3_OPS_* a valid point and K4_OPS_STEP
+    plus one add a column a CTA row a step."""
+    from warpsense_tpu_torch.kernels.registration import CLUSTER
     from warpsense_tpu_torch.ops import registration as treg
     n = prob.points.shape[0]
     gathered = {treg.LAYOUT_PACKED: 4, treg.LAYOUT_EXACT: 8,
                 treg.LAYOUT_PARITY: 12}[prob.layout]
-    nbytes = 13 * n + gathered * valid + 64 + 4 * treg.PARTIALS * blocks
-    ops = (K3_OPS_PARITY if prob.layout == treg.LAYOUT_PARITY
-           else K3_OPS_FAST) * valid
+    per_point = (K3_OPS_PARITY if prob.layout == treg.LAYOUT_PARITY
+                 else K3_OPS_FAST)
+    nbytes, ops = 8 * treg.STATE_LEN, 0
+    for mode, v in zip(modes, valid):
+        if mode == "cached":
+            nbytes += 13 * n + 28 * v
+        else:
+            pts = -(-n // 4) if mode == "coarse" else n
+            nbytes += 13 * pts + gathered * v + (29 * n if mode == "gather"
+                                                 else 0)
+        ops += per_point * v + K4_OPS_STEP + treg.SUMS * CLUSTER
     return nbytes, ops
 
 
@@ -1037,113 +1132,115 @@ def time_host_ms(fn, setup=None, reps=5) -> float:
 
 def registration_report(launches, name, *, check=True) -> dict:
     """The registrations of one path from its counts (``read_launches``):
-    their iterations, the device loop's header reads (host syncs) and the
-    loop's host-clock time, each per registration.  With ``check``: K3 and
-    K4 ran, and no registration read the card more than once a chunk of
-    CHUNK iterations (the sum of ceil(iterations / CHUNK) is at most
-    iterations / CHUNK + registrations)."""
-    from warpsense_tpu_torch.ops.registration import CHUNK
+    their iterations, the loop kernel's launches, the header reads (host
+    syncs) and the loop's host-clock time, each per registration.  With
+    ``check``: every registration was one launch of the loop kernel and
+    one read of the card."""
     n = launches["registrations"]
     rep = dict(registrations=n, iterations=launches["reg_iterations"],
-               syncs=launches["reg_syncs"], chunk=CHUNK,
-               k3_launches=launches["reg_stats"],
-               k4_launches=launches["reg_step"])
+               syncs=launches["reg_syncs"],
+               loop_kernel_launches=launches["reg_loop"])
     if n:
         rep.update(iterations_per_registration=rep["iterations"] / n,
                    syncs_per_registration=rep["syncs"] / n,
                    loop_ms_per_registration=launches["reg_seconds"] * 1e3
                    / n)
     log(f"[registration {name}]", json.dumps(rep))
-    if check and not (n > 0 and min(rep["k3_launches"],
-                                    rep["k4_launches"]) > 0):
-        raise AssertionError(f"{name}: K3/K4 did not run: {rep}")
-    if check and not (n <= rep["syncs"]
-                      <= rep["iterations"] / CHUNK + n):
-        raise AssertionError(f"{name}: more than one sync a chunk: {rep}")
+    if check and not (n > 0 and rep["loop_kernel_launches"] == n
+                      and rep["syncs"] == n):
+        raise AssertionError(f"{name}: a registration was not one launch "
+                             f"of the loop kernel and one read: {rep}")
     return rep
 
 
-def time_regloop(torch, probs, poses) -> dict:
-    """REGLOOP (e)'s times: K3 in its full mode on the packed FULL problem
-    (the fast app's iteration) and on the parity one, K4, an empty kernel
-    (the launch floor), each as one call between events (``ms``) and per
-    launch in runs of K2_LAUNCHES (``per_launch_ms``); the plain versions;
-    torch.linalg.solve_ex on one 6x6 system (K4's library yardstick); each
-    kernel beside its bound."""
+def time_loops(torch, probs, poses) -> dict:
+    """REGLOOP (e): each timed problem from the first pose: one
+    registration between CUDA events (``ms``, the state made outside
+    them), the loop kernel's device time (torch.profiler) and the empty
+    cluster loop's at as many iterations, each per registration and per
+    iteration, beside the registration's bound (``loop_cost`` of its
+    trace) and the loop's device time per iteration on every 1,024th
+    point (the step, the reductions and the barrier without the
+    statistics' work).  The timed problems: the fast app's (packed, the
+    freeze, no coarse phase), REGLOOP's three."""
     from warpsense_tpu_torch.kernels import registration as kreg
     from warpsense_tpu_torch.ops import registration as treg
-    dev = probs["packed"].points.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    dev = poses[0].device
+    timed = dict(packed_app=probs["packed"]._replace(coarse_iterations=0),
+                 **probs)
     out = {}
-    empty_ms = time_ms(torch, lambda: kreg.launch_empty(stream))
-    empty_pl = time_per_launch(torch, lambda: kreg.launch_empty(stream))
+    sink = torch.zeros(32, device=dev)
+    for name, prob in timed.items():
+        st0 = treg.init_state(prob, poses[0], dev)
+        trace = torch.zeros((prob.max_iterations, kreg.TRACE_WIDTH),
+                            device=dev)
+        st = st0.clone()
+        kreg.reg_loop(st, prob, trace=trace)
+        n = int(st[treg.S_I])
+        stats = trace_stats(prob, trace, n)
+        k_ms = time_ms(torch, lambda: kreg.reg_loop(st, prob),
+                       setup=lambda: st.copy_(st0))
+        us = kernel_device_us(torch, lambda: (
+            st.copy_(st0), kreg.reg_loop(st, prob),
+            kreg.launch_cluster_empty(sink, n)),
+            ("loop_kernel", "empty_cluster_loop"), reps=20)
+        nbytes, ops = loop_cost(prob, stats["mode_by_iteration"],
+                                stats["valid"])
+        # the same loop on every 1,024th point (one a thread at most;
+        # epsilon 0, so only the step's own tests stop it): the
+        # iteration's cost without its statistics' work
+        few = prob._replace(points=prob.points[::1024],
+                            mask=prob.mask[::1024], epsilon=0.0,
+                            max_iterations=max(n, 2))
+        st_f0 = treg.init_state(few, poses[0], dev)
+        st_f = st_f0.clone()
+        kreg.reg_loop(st_f, few)
+        n_few = int(st_f[treg.S_I])
+        us_few = kernel_device_us(torch, lambda: (
+            st_f.copy_(st_f0), kreg.reg_loop(st_f, few)),
+            ("loop_kernel",), reps=20)
+        t = dict(cluster=kreg.CLUSTER, iterations=n, ms=k_ms,
+                 device_ms=us["loop_kernel"] / 1e3,
+                 empty_cluster_device_ms=us["empty_cluster_loop"] / 1e3,
+                 few_points_iterations=n_few,
+                 few_points_device_ms_per_iteration=us_few[
+                     "loop_kernel"] / 1e3 / max(n_few, 1),
+                 **bound(nbytes, ops, us["loop_kernel"] / 1e3))
+        for key in ("ms", "device_ms", "empty_cluster_device_ms",
+                    "bound_ms"):
+            t[f"{key}_per_iteration"] = t[key] / max(n, 1)
+        out[name] = t
+        log(f"[time loop {name}]", json.dumps(t))
+    return out
+
+
+def time_plain(torch, probs, poses) -> dict:
+    """The halves' plain versions and yardsticks: reg_stats_plain in its
+    full mode on the packed FULL problem (the fast app's iteration) and on
+    the parity one (on the card), reg_step_plain on the CPU, an empty
+    kernel (one launch's floor) and torch.linalg.solve_ex on one 6x6
+    system (K4's library yardstick), each one call between events."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.ops import registration as treg
+    dev = poses[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = dict(empty_ms=time_ms(torch, lambda: kreg.launch_empty(stream)))
     for name in ("packed", "parity"):
         prob = probs[name]._replace(coarse_iterations=0, split=False)
         st = treg.init_state(prob, poses[0], dev)
-        scratch = {}
-        part = kreg.reg_stats(st, prob, scratch)
-        valid = int(treg.sum_partials(part.cpu())[28])
-        k_ms = time_ms(torch, lambda: kreg.reg_stats(st, prob, scratch))
-        pl_ms = time_per_launch(torch, lambda: kreg.reg_stats(st, prob,
-                                                               scratch))
-        p_ms = time_ms(torch, lambda: treg.reg_stats_plain(st, prob, {}),
-                       reps=5)
-        nbytes, ops = k3_cost(prob, valid, part.shape[0])
-        out[f"K3_{name}"] = dict(
-            points=prob.points.shape[0], valid=valid, ms=k_ms,
-            per_launch_ms=pl_ms, plain_ms=p_ms, library_ms=None,
-            empty_ms=empty_ms, empty_per_launch_ms=empty_pl,
-            **bound(nbytes, ops, k_ms))
-        log(f"[time K3 {name}]", json.dumps(out[f"K3_{name}"]))
-    # K4: one step from a saved state (restored outside the events);
-    # per launch on a GN problem that never finishes (epsilon 0, no cap),
-    # so back-to-back launches each do a step
+        out[f"K3_plain_{name}_ms"] = time_ms(
+            torch, lambda: treg.reg_stats_plain(st, prob, {}), reps=5)
     prob = probs["parity"]
-    st0 = treg.init_state(prob, poses[0], dev)
-    scratch = {}
-    part = kreg.reg_stats(st0, prob, scratch).clone()
-    st = st0.clone()
-    k_ms = time_ms(torch, lambda: kreg.reg_step(st, part, prob, scratch),
-                   setup=lambda: st.copy_(st0))
-    endless = prob._replace(epsilon=0.0, max_iterations=2 ** 30)
-    st_e = st0.clone()
-    sc_e = {}
-    pl_ms = time_per_launch(torch, lambda: kreg.reg_step(st_e, part, endless,
-                                                         sc_e))
-    st_p = st0.cpu()
-    part_p = part.cpu()
+    st_p = treg.init_state(prob, poses[0], "cpu")
+    row = treg.reg_stats_plain(st_p.to(dev), prob, {}).cpu()
     ref = st_p.clone()
-    p_ms = time_host_ms(lambda: treg.reg_step_plain(st_p, part_p, prob),
-                        setup=lambda: st_p.copy_(ref))
+    out["K4_plain_ms"] = time_host_ms(
+        lambda: treg.reg_step_plain(st_p, row, prob),
+        setup=lambda: st_p.copy_(ref))
     A = torch.eye(6, device=dev) * 2.0 + 0.1
     b = torch.ones(6, device=dev)
-    lib_ms = time_ms(torch, lambda: torch.linalg.solve_ex(A, b))
-    lib_pl = time_per_launch(torch, lambda: torch.linalg.solve_ex(A, b))
-    blocks = part.shape[0]
-    out["K4"] = dict(blocks=blocks, ms=k_ms, per_launch_ms=pl_ms,
-                     plain_ms=p_ms, library_ms=lib_ms,
-                     library_per_launch_ms=lib_pl, empty_ms=empty_ms,
-                     empty_per_launch_ms=empty_pl,
-                     **bound(4 * treg.PARTIALS * blocks
-                             + 8 * treg.STATE_LEN,
-                             K4_OPS_STEP + treg.SUMS * blocks, k_ms))
-    log("[time K4]", json.dumps(out["K4"]))
-    # the kernels' own device time (torch.profiler), without the host's
-    # enqueue that bounds the back-to-back runs above
-    prob = probs["packed"]._replace(coarse_iterations=0, split=False)
-    st = treg.init_state(prob, poses[0], dev)
-    sc = {}
-    kreg.reg_stats(st, prob, sc)
-    device_us = kernel_device_us(torch, lambda: (
-        kreg.reg_stats(st, prob, sc), kreg.reg_step(st_e, part, endless,
-                                                    sc_e),
-        kreg.launch_empty(stream)), ("stats_kernel", "step_kernel",
-                                     "empty_kernel"))
-    out["K3_packed"]["device_ms"] = device_us["stats_kernel"] / 1e3
-    out["K4"]["device_ms"] = device_us["step_kernel"] / 1e3
-    for t in out.values():
-        t["empty_device_ms"] = device_us["empty_kernel"] / 1e3
-    log("[time K3/K4 device]", json.dumps(device_us))
+    out["solve_ex_ms"] = time_ms(torch, lambda: torch.linalg.solve_ex(A, b))
+    log("[time plain]", json.dumps(out))
     return out
 
 
@@ -1170,21 +1267,18 @@ def kernel_device_us(torch, fn, names, reps=50) -> dict:
 
 
 def run_regloop(torch, full_state, default_state, device) -> dict:
-    """REGLOOP: (a) K3, (b) K4 and (c) the device loop against the host
-    loop, then (e)'s times.  Its own launches are not the main paths'."""
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    """REGLOOP: (a)-(c) the loop kernel against the plain versions and
+    the host loop, then (e)'s times.  Its own launches are not the main
+    paths'."""
     probs = regloop_problems(torch, full_state, default_state, device)
     poses = [p.to(device) for p in regloop_poses(torch)]
-    out = dict(k3=check_k3(torch, probs, poses),
-               k4=check_k4(torch, probs, poses),
-               loops=check_loops(torch, probs, poses),
-               times=time_regloop(torch, probs, poses))
+    out = dict(loops=check_loops(torch, probs, poses),
+               times=time_loops(torch, probs, poses),
+               plain=time_plain(torch, probs, poses))
+    runs = [r for rs in out["loops"].values() for r in rs]
     out["max_abs_err"] = dict(
-        K3=max(max(c["H_rel"], c["g_rel"], c["e_rel"])
-               for cases in out["k3"].values() for c in cases),
-        K4=max(r["pose_rel"] for r in out["k4"].values()))
-    out["launches"] = dict(reg_stats=reg_stats.launches,
-                           reg_step=reg_step.launches)
+        K3=max(max(r["H_rel"], r["g_rel"], r["e_rel"]) for r in runs),
+        K4=max(r["step_max_abs_err"] for r in runs))
     return out
 
 
@@ -1356,33 +1450,32 @@ def default_params(**map_overrides):
 def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    from warpsense_tpu_torch.kernels.registration import reg_loop
     from warpsense_tpu_torch.ops.registration import \
         reset_registration_counts
     fusion_sweep_merge.launches = 0
     fusion_sweep_merge.general_launches = 0
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
-    reg_stats.launches = 0
-    reg_step.launches = 0
+    reg_loop.launches = 0
     reset_registration_counts()
 
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
-    sweep), K2's ("fields", and its aligned copies "fields_staged"), K3's
-    ("reg_stats") and K4's ("reg_step"), and the device loop's counts:
-    registrations, their iterations, header reads (host syncs) and host
-    seconds."""
+    sweep), K2's ("fields", and its aligned copies "fields_staged"), the
+    loop kernel's ("reg_loop", which runs K3 and K4), and the
+    registrations' counts: registrations, their iterations, header reads
+    (host syncs) and host seconds."""
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    from warpsense_tpu_torch.kernels.registration import reg_loop
     from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
-            "reg_stats": reg_stats.launches, "reg_step": reg_step.launches,
+            "reg_loop": reg_loop.launches,
             "registrations": run_registration.calls,
             "reg_iterations": run_registration.iterations,
             "reg_syncs": run_registration.syncs,
@@ -2161,21 +2254,37 @@ def main() -> int:
         entry(k2_times[name]), **{k: k2_times[name][k] for k in (
             "per_launch_ms", "copy_ms", "share_of_copy")})
         for name in ("packed", "exact")}
-    times = regloop["times"]
+    from warpsense_tpu_torch.kernels.registration import CLUSTER
+    loop_times = regloop["times"]
+    plain = regloop["plain"]
+    app_loop = loop_times["packed_app"]
 
-    def reg_entry(name, t, counter, replaces, also):
+    def reg_entry(name, replaces, also, plain_ms, library_ms):
+        """K3 or K4: both halves of one launch of the loop kernel, so both
+        carry its time per iteration on the fast app's problem."""
+        t = app_loop
         return {"name": name, "route": "cuda",
                 "source": "warpsense_tpu_torch/csrc/registration.cu",
+                "launched_as": "loop_kernel", "cluster": CLUSTER,
                 "replaces": replaces, "also_replaces": also,
-                "launches": app["launches"][counter],
-                "launches_by_path": {k: v[counter] for k, v in paths.items()},
+                "launches": app["launches"]["reg_loop"],
+                "iterations": app["launches"]["reg_iterations"],
+                "launches_by_path": {k: v["reg_loop"]
+                                     for k, v in paths.items()},
+                "iterations_by_path": {k: v["reg_iterations"]
+                                       for k, v in paths.items()},
                 "max_abs_err": regloop["max_abs_err"][name[-2:]],
-                **{k: t[k] for k in timing_keys},
-                "per_launch_ms": t["per_launch_ms"],
-                "device_ms": t["device_ms"],
-                "empty_kernel_ms": t["empty_ms"],
-                "empty_kernel_per_launch_ms": t["empty_per_launch_ms"],
-                "empty_kernel_device_ms": t["empty_device_ms"]}
+                "ms": t["ms_per_iteration"], "plain_ms": plain_ms,
+                "bound_ms": t["bound_ms_per_iteration"],
+                "bound_by": t["bound_by"],
+                "share_of_bound": t["share_of_bound"],
+                "library_ms": library_ms,
+                "device_ms": t["device_ms_per_iteration"],
+                "empty_cluster_loop_ms":
+                    t["empty_cluster_device_ms_per_iteration"],
+                "empty_kernel_ms": plain["empty_ms"],
+                "ms_per_registration": t["ms"],
+                "device_ms_per_registration": t["device_ms"]}
 
     kernels = [
         {"name": "fusion_K1", "route": "cuda",
@@ -2195,15 +2304,15 @@ def main() -> int:
          "launches_by_path": {k: v["fields"] for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          **k2_cases["packed_full"], "cases": k2_cases},
-        dict(reg_entry("reg_stats_K3", times["K3_packed"], "reg_stats",
+        dict(reg_entry("reg_stats_K3",
                        "warpsense_tpu/ops/registration.py:454",
                        ["warpsense_tpu/ops/registration.py:106",
-                        "warpsense_tpu/ops/registration.py:512"]),
-             cases={"parity": {k: times["K3_parity"][k] for k in
-                               timing_keys + ("per_launch_ms", "points")}}),
-        reg_entry("reg_step_K4", times["K4"], "reg_step",
-                  "warpsense_tpu/ops/registration.py:572",
-                  ["warpsense_tpu/ops/registration.py:212"]),
+                        "warpsense_tpu/ops/registration.py:512"],
+                       plain["K3_plain_packed_ms"], None),
+             loop=loop_times),
+        reg_entry("reg_step_K4", "warpsense_tpu/ops/registration.py:572",
+                  ["warpsense_tpu/ops/registration.py:212"],
+                  plain["K4_plain_ms"], plain["solve_ex_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])

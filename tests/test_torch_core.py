@@ -223,3 +223,18 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
+
+
+def test_odom_estimation_runs_on_the_card_unless_asked_for_the_cpu():
+    """``OdomEstimation`` defaults to the card, as the apps do: without a
+    GPU the default raises; ``device="cpu"`` puts its maps on the CPU."""
+    from warpsense_tpu_torch.frontends.featsense.odometry import \
+        OdomEstimation
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        OdomEstimation()
+    est = OdomEstimation(device="cpu", edge_map_capacity=16,
+                         surf_map_capacity=16)
+    assert est.device == torch.device("cpu")
+    assert est.edge_map.points.device.type == "cpu"

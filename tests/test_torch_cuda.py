@@ -592,14 +592,15 @@ def test_k2_on_padded_slabs_matches_whole_window(cuda, exact):
             assert torch.equal(a[1:-1], b[lo:hi])
 
 
-# ------------------------------------------------ registration: K3 and K4
+# ------------------------------------ registration: the loop kernel (K3, K4)
 # A room fused by K1 at 81 x 81 x 65; the fast LM (coarse phase and gather
 # freeze, so one loop runs every K3 mode) on K2's packed and exact fields,
-# the parity GN on the plain parity fields.  Tolerances as chip_smoke's
-# REGLOOP: K3's sums in another order than the plain matmul (relative
-# 1e-5, H and g against their largest entry; c exact), K4 the plain step's
-# float32 operations (relative 1e-6 of the pose, flags equal), the loops
-# equal in iterations and within 0.5 mm / 1e-4 rad.
+# the parity GN on the plain parity fields, each one launch of the loop
+# kernel, traced.  Tolerances as chip_smoke's REGLOOP: K3's sums (each
+# traced iteration's rows, summed) in another order than the plain matmul
+# (relative 1e-5, H and g against their largest entry; c exact), K4 the
+# plain step to the bit at every traced step, the loop equal in iterations
+# to the host loop and within 0.5 mm / 1e-4 rad.
 
 REG_SIZE = (81, 81, 65)
 
@@ -630,12 +631,7 @@ def reg_problems():
               recenter=False, coarse_iterations=0, split=False,
               max_iterations=200, epsilon=0.03, it_weight_gradient=0.1,
               freeze_step_mm=0.0)
-    pose = torch.eye(4)
-    a = math.radians(1.0) / math.sqrt(3.0)
-    K = torch.tensor([[0.0, -a, a], [a, 0.0, -a], [-a, a, 0.0]])
-    pose[:3, :3] = torch.linalg.matrix_exp(K)
-    pose[:3, 3] = torch.tensor([100.0, -100.0, 0.0])
-    return pose.to(cuda), {
+    return _reg_pose(1.0, (100.0, -100.0, 0.0)).to(cuda), {
         "packed": treg.RegProblem(fields=fields_packed(st, tau=TAU),
                                   layout=treg.LAYOUT_PACKED, **lm),
         "exact": treg.RegProblem(fields=fields_packed(st, tau=TAU,
@@ -645,82 +641,108 @@ def reg_problems():
                                   layout=treg.LAYOUT_PARITY, **gn)}
 
 
-def _k3_sums(part):
-    return treg.sum_partials(part.cpu()).double()
+def _reg_pose(deg, t):
+    """A rotation of ``deg`` about (1, 1, 1) and a translation ``t`` mm."""
+    pose = torch.eye(4)
+    a = math.radians(deg) / math.sqrt(3.0)
+    K = torch.tensor([[0.0, -a, a], [a, 0.0, -a], [-a, a, 0.0]])
+    pose[:3, :3] = torch.linalg.matrix_exp(K)
+    pose[:3, 3] = torch.tensor(t)
+    return pose
+
+
+# from here the fast LM's steps fall below the freeze (64 mm, 1e-3 rad)
+# before it stops, so its last iterations run from the gathered cache (the
+# plain loop on the CPU: frozen from the sixth step of seven)
+FREEZE_POSE = (0.2, (30.0, -20.0, 10.0))
+
+
+def _traced(prob, pose):
+    """One launch of the loop kernel from ``pose`` with a trace: (end
+    state, trace)."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    st = treg.init_state(prob, pose, pose.device)
+    trace = torch.zeros((prob.max_iterations, kreg.TRACE_WIDTH),
+                        device=pose.device)
+    launches = kreg.reg_loop.launches
+    kreg.reg_loop(st, prob, trace=trace)
+    torch.cuda.synchronize()
+    assert kreg.reg_loop.launches == launches + 1
+    return st, trace
+
+
+def _full(prob):
+    return prob._replace(coarse_iterations=0, split=False)
+
+
+def _check_traced_stats(prob, st, trace):
+    """Each traced iteration's rows, summed, against the plain statistics
+    at the traced carry (``ops/registration.trace_stats``): c equal and
+    H / g / e within 1e-5 relative; the modes the run went through."""
+    its = treg.trace_stats(trace, int(st[treg.S_I]), prob)
+    for k, r in enumerate(its):
+        assert r["c"] == r["c_plain"] and r["c"] > 100, (k, r)
+        assert max(r["H_rel"], r["g_rel"], r["e_rel"]) <= 1e-5, (k, r)
+    return {r["mode"] for r in its}
 
 
 @pytest.mark.parametrize("name", ["packed", "exact", "parity"])
 def test_k3_matches_plain_in_every_mode(reg_problems, name):
-    from warpsense_tpu_torch.kernels.registration import reg_stats
+    """Each traced iteration's statistics against the plain version's in
+    every mode the layout runs; a second launch traces the same bits."""
     pose, probs = reg_problems
-    prob = probs[name]
-    modes = (["full"] if name == "parity"
-             else ["full", "coarse", "gather", "cached"])
-    split_state, scratch, cache = None, {}, {}
-    for mode in modes:
-        p = prob._replace(coarse_iterations=0, split=False) \
-            if mode == "full" else prob
-        if mode in ("gather", "cached"):
-            if split_state is None:
-                split_state = treg.init_state(p, pose, pose.device)
-                split_state[treg.S_I] = float(p.coarse_iterations)
-            st, sc, ca = split_state, scratch, cache
-        else:
-            st, sc, ca = treg.init_state(p, pose, pose.device), {}, {}
-        if mode == "cached":
-            st[treg.S_FROZEN] = 1.0
-            st[treg.S_TRIAL + 3] += 5.0
-        launches = reg_stats.launches
-        k1 = reg_stats(st, p, sc).clone()
-        k2 = reg_stats(st, p, sc).clone()
-        assert reg_stats.launches == launches + 2
-        assert torch.equal(k1, k2), mode           # a fixed order of sums
-        got = _k3_sums(k1)
-        want = treg.reg_stats_plain(st, p, ca)[0].cpu().double()
-        assert got[28] == want[28] and want[28] > 100, mode
-        for lo, hi in ((0, 21), (21, 27), (27, 28)):
-            err = (got[lo:hi] - want[lo:hi]).abs().max()
-            assert err <= 1e-5 * want[lo:hi].abs().max(), (mode, lo)
+    runs = [(_full(probs[name]), pose)]
+    if name != "parity":
+        runs.append((probs[name], _reg_pose(*FREEZE_POSE).to(pose.device)))
+    modes = set()
+    for prob, start in runs:
+        st, trace = _traced(prob, start)
+        st2, trace2 = _traced(prob, start)
+        assert torch.equal(st, st2) and torch.equal(trace, trace2)
+        modes |= _check_traced_stats(prob, st, trace)
+    assert modes == ({"full"} if name == "parity"
+                     else {"full", "coarse", "gather", "cached"}), modes
+
+
+@pytest.mark.parametrize("name", ["packed", "parity"])
+def test_loop_kernel_at_a_resolution_that_is_no_power_of_two(reg_problems,
+                                                             name):
+    """The cell's floor division and the gradient's division by the
+    resolution take their general path (the fast path is a shift and a
+    product with the exact reciprocal of a power of two): the same checks
+    at 60 mm (the cloud then reads other cells of the same planes)."""
+    pose, probs = reg_problems
+    prob = probs[name]._replace(resolution=60, normalize=True)
+    st, trace = _traced(prob, pose)
+    _check_traced_stats(prob, st, trace)
+    assert treg.replay_trace(trace, st, prob)[1] == []
 
 
 @pytest.mark.parametrize("name", ["packed", "exact", "parity"])
 def test_k4_matches_plain_along_a_registration(reg_problems, name):
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    """Every traced step of the loop kernel is the plain step's to the
+    bit: ``reg_step_plain`` from each traced carry on the traced rows gives
+    the next traced carry, and after the last the kernel's end state."""
     pose, probs = reg_problems
-    prob = probs[name]
-    st = treg.init_state(prob, pose, pose.device)
-    scratch = {}
-    steps = 0
-    while not (bool(st[treg.S_FIN] != 0)
-               or int(st[treg.S_I]) >= prob.max_iterations):
-        part = reg_stats(st, prob, scratch)
-        ref = st.cpu()
-        treg.reg_step_plain(ref, part.cpu(), prob)
-        reg_step(st, part, prob, scratch)
-        got = st.cpu()
-        assert torch.equal(got[:8], ref[:8]), (steps, got[:8], ref[:8])
-        for lo in (treg.S_TRIAL, treg.S_ACC):
-            want = ref[lo:lo + 16].double()
-            assert (got[lo:lo + 16].double() - want).abs().max() \
-                <= 1e-6 * want.abs().max(), steps
-        steps += 1
-    assert steps > 2
+    st, trace = _traced(probs[name], pose)
+    _, differ, tests, err = treg.replay_trace(trace, st, probs[name])
+    assert differ == [] and err == 0.0 and len(tests) > 2
 
 
 @pytest.mark.parametrize("name", ["packed", "exact", "parity"])
 def test_device_loop_matches_host_loop(reg_problems, name):
-    from warpsense_tpu_torch.kernels.registration import reg_stats, reg_step
+    """A registration on the card is one launch and one read of the
+    header, at the host loop's iterations and within 0.5 mm / 1e-4 rad."""
+    from warpsense_tpu_torch.kernels.registration import reg_loop
     pose, probs = reg_problems
     prob = probs[name]
     at = treg.S_ACC if prob.lm else treg.S_TRIAL
-    k3, k4 = reg_stats.launches, reg_step.launches
+    launches = reg_loop.launches
     syncs = treg.run_registration.syncs
     dev, head = treg.run_registration(prob, pose)
-    reads = treg.run_registration.syncs - syncs
+    assert treg.run_registration.syncs - syncs == 1
+    assert reg_loop.launches - launches == 1
     n = int(head[treg.S_I])
-    assert reads == -(-n // treg.CHUNK)
-    assert reg_stats.launches - k3 == reg_step.launches - k4 == \
-        reads * treg.CHUNK
     host, hhead = treg.run_registration(prob, pose, host=True)
     assert int(hhead[treg.S_I]) == n
     a = dev[at:at + 16].reshape(4, 4).cpu().double()
@@ -729,3 +751,21 @@ def test_device_loop_matches_host_loop(reg_problems, name):
     assert (a[:3, :3].T @ b[:3, :3] - torch.eye(3, dtype=torch.float64)
             ).abs().max() < 1e-4
     assert (a[:3, 3] - pose[:3, 3].cpu()).abs().max() > 5.0   # it moved
+
+
+def test_loop_kernel_places_its_cluster(reg_problems):
+    """The library is built for the wrapper's cluster, which the card
+    places for every layout; the empty cluster loop runs on that cluster
+    and reads every CTA's row."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    pose, _ = reg_problems
+    assert kreg._lib().ws_reg_cluster() == kreg.CLUSTER == 16
+    for layout in (treg.LAYOUT_PARITY, treg.LAYOUT_PACKED,
+                   treg.LAYOUT_EXACT):
+        assert kreg.max_clusters(layout) >= 1
+    out = torch.zeros(32, device=pose.device)
+    kreg.launch_cluster_empty(out, 10)
+    torch.cuda.synchronize()
+    # the last iteration's rows hold 9 + column in every CTA
+    assert torch.equal(out, kreg.CLUSTER * (9.0 + torch.arange(
+        32, device=out.device, dtype=torch.float32)))

@@ -1,7 +1,9 @@
 """Port vs JAX: the registration loops run as the JAX ``lax.while_loop``,
-with the carry in one state buffer and the plain versions of kernels K3
-(``reg_stats_plain``) and K4 (``reg_step_plain``) on the CPU, driven in
-chunks (``run_registration``).
+with the carry in one state buffer and the plain versions of the loop
+kernel's halves, K3 (``reg_stats_plain``) and K4 (``reg_step_plain``), on
+the CPU, driven in chunks (``run_registration``); the trace replay that
+holds the loop kernel's steps to the plain step on the card; the loop
+kernel's point plan.
 
 Same map, fields and cloud in both (handed over through numpy), at a
 81 x 81 x 65 window.  Tolerances: poses within 0.5 mm and 1e-4 rad (the
@@ -240,17 +242,101 @@ def test_chunk_size_changes_no_bit(chunk_problems, loop, chunk):
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu(chunk_problems):
-    """On a CPU state the wrappers are the plain versions and launch
-    nothing; the chunked loop is the host loop's (``host=True``) bit for
-    bit."""
+    """On a CPU state the loop kernel's wrapper is the plain loop and
+    launches nothing; the chunked loop is the host loop's (``host=True``)
+    bit for bit."""
     prob, pert = chunk_problems["lm"]
-    k3, k4 = kreg.reg_stats.launches, kreg.reg_step.launches
+    launches = kreg.reg_loop.launches
     syncs = treg.run_registration.syncs
     state, head = treg.run_registration(prob, pert)
-    assert (kreg.reg_stats.launches, kreg.reg_step.launches) == (k3, k4)
+    assert kreg.reg_loop.launches == launches
     assert treg.run_registration.syncs == syncs      # no card, no sync
     host, hhead = treg.run_registration(prob, pert, host=True)
     assert torch.equal(state, host) and head == hhead
+    direct = treg.init_state(prob, pert, "cpu")
+    kreg.reg_loop(direct, prob)
+    assert torch.equal(direct, host) and kreg.reg_loop.launches == launches
+
+
+@pytest.fixture(scope="module")
+def trace_problems(fast_scene, parity_scene):
+    """RegProblems of every loop the kernel runs: the LM over packed and
+    exact fields (without and with the coarse phase and the freeze) and
+    the GN in its parity and fast modes."""
+    st, cloud = fast_scene
+    mask = _mask(len(cloud))
+    lm = dict(pos=_t(st.pos), offset=_t(st.offset), points=_t(cloud),
+              mask=_t(mask), size=SIZE, resolution=RES, tau=TAU,
+              interp=True, normalize=False, lm=True, recenter=True,
+              max_iterations=50, epsilon=0.03, it_weight_gradient=0.0,
+              freeze_step_mm=float(RES))
+    out = {}
+    for exact in (False, True):
+        tf = _packed(st, exact)[1]
+        layout = treg.LAYOUT_EXACT if exact else treg.LAYOUT_PACKED
+        name = "exact" if exact else "packed"
+        out[name] = treg.RegProblem(fields=tf, layout=layout,
+                                    coarse_iterations=0, split=False, **lm)
+        out[name + "_coarse_freeze"] = treg.RegProblem(
+            fields=tf, layout=layout, coarse_iterations=3, split=True, **lm)
+    pst, pcloud = parity_scene
+    pf = registration_fields_from_numpy(
+        *(np.asarray(p) for p in jreg.precompute_fields(pst)))
+    for mode in ("parity", "fast"):
+        out["gn_" + mode] = treg.RegProblem(
+            fields=pf, pos=_t(pst.pos), offset=_t(pst.offset),
+            points=_t(pcloud), mask=_t(_mask(len(pcloud))), size=SIZE,
+            resolution=RES, tau=TAU, layout=treg.LAYOUT_PARITY,
+            interp=False, normalize=mode == "fast", lm=False,
+            recenter=mode == "fast", coarse_iterations=0, split=False,
+            max_iterations=200 if mode == "parity" else 30, epsilon=0.03,
+            it_weight_gradient=0.1, freeze_step_mm=0.0)
+    return out, _t(_perturbation(41))
+
+
+@pytest.mark.parametrize("name", ["packed", "exact", "packed_coarse_freeze",
+                                  "exact_coarse_freeze", "gn_parity",
+                                  "gn_fast"])
+def test_trace_replay_is_the_host_loop(trace_problems, name):
+    """The loop's trace, replayed step by step with the plain step
+    (``replay_trace``, the check the loop kernel is held to on the card),
+    gives every traced carry and the end state to the bit; on a trace of
+    the plain loop that end state is the host loop's.  A carry changed in
+    the trace is found at the step before it."""
+    probs, pert = trace_problems
+    prob = probs[name]
+    trace = torch.zeros((prob.max_iterations, kreg.TRACE_WIDTH))
+    state = treg.init_state(prob, pert, "cpu")
+    kreg.reg_loop(state, prob, trace=trace)
+    host, _ = treg.run_registration(prob, pert, host=True)
+    replayed, differ, tests, err = treg.replay_trace(trace, state, prob)
+    assert differ == [] and err == 0.0
+    assert torch.equal(replayed, host) and torch.equal(state, host)
+    n = int(host[treg.S_I])
+    assert 2 < n == len(tests) and all(t is not None for t in tests)
+    assert not trace[n:].any()                       # untouched past the end
+    assert not trace[:n, treg.STATE_LEN + treg.PARTIALS:].any()
+    if prob.split:
+        assert bool(host[treg.S_FROZEN])        # the cached mode ran
+    trace[2, treg.S_ALPHA] += 1.0
+    _, differ, _, err = treg.replay_trace(trace, state, prob)
+    assert differ == [1, 2] and err >= 0.999
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("n", [1, 8100, 32766, 131072])
+def test_cluster_plan_takes_every_point_once(n, stride):
+    """The loop kernel's point -> thread plan (fixed by the point count):
+    the cluster's threads together take every point exactly once (every
+    4th point in the coarse phase, ``stride`` 4), no thread more than its
+    share rounded up."""
+    taken = [kreg.thread_points(n, r, t, stride)
+             for r in range(kreg.CLUSTER) for t in range(kreg.THREADS)]
+    flat = np.concatenate([np.asarray(p, np.int64) for p in taken])
+    np.testing.assert_array_equal(np.sort(flat), np.arange(0, n, stride))
+    count = -(-n // stride)
+    assert max(len(p) for p in taken) == -(-count
+                                           // (kreg.CLUSTER * kreg.THREADS))
 
 
 def _damped_normals(n, rng):
@@ -317,7 +403,8 @@ def test_singular_system_gives_nan_and_a_skipped_step(chunk_problems):
 
 def test_the_partials_sum_is_k4s_lane_order():
     """``sum_partials``: rows l, l + 8, ... summed in order per lane, then
-    the lanes in order (K4's order), not a library reduction."""
+    the lanes in order (the order in which the loop kernel's step sums its
+    CTAs' rows), not a library reduction."""
     rng = np.random.default_rng(3)
     p = torch.from_numpy(rng.normal(size=(37, treg.PARTIALS)).astype(
         np.float32) * 1e4)
@@ -328,5 +415,3 @@ def test_the_partials_sum_is_k4s_lane_order():
             t = t + p[r]
         want = want + t
     assert torch.equal(treg.sum_partials(p), want)
-    assert kreg.stats_blocks(0) == 1 and kreg.stats_blocks(32766) == 128
-    assert kreg.stats_blocks(131072) == kreg.MAX_BLOCKS

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K2 of two or more checkouts of warpsense_tpu_torch on
-one GPU.
+"""Time kernels K1 and K2, and the registration loop kernel, of two or more
+checkouts of warpsense_tpu_torch on one GPU.
 
-    python3 tools/kernel_ab.py [--kernels k1,k2] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--kernels k1,k2,loop] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``warpsense_tpu_torch`` package (a
 checkout of another commit, unpacked with ``git archive``, or ``.``).  Every
@@ -17,7 +17,11 @@ checks and the timing are chip_smoke.py's (this checkout's):
 * k2: K2's packed and exact times at 625 x 625 x 235 on chip_smoke's seeded
   full-range window, after ``check_fields`` has held the ROOT's kernel to
   its plain versions on it: one call and per launch (``time_fields``),
-  with the copy yardstick beside them.
+  with the copy yardstick beside them;
+* loop: the registration loop kernel (a checkout that has it) on
+  chip_smoke's REGLOOP problems (``time_loops``): its device time an
+  iteration on the whole cloud and on every 1,024th point, and one
+  registration between events.
 
 The first line is the card's name and power limit as nvidia-smi gives them.
 """
@@ -30,7 +34,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KERNELS = ("k1", "k2")
+KERNELS = ("k1", "k2", "loop")
 
 
 def time_root(root: str, kernels) -> dict:
@@ -59,13 +63,26 @@ def time_root(root: str, kernels) -> dict:
                 out[f"k2_{name}_{key}"] = t[key]
         del state
         torch.cuda.empty_cache()
+    if "loop" in kernels:
+        full, _ = cs.check_fusion(torch, cs.FULL, device)
+        default, _ = cs.check_fusion(torch, cs.default_fusion_cfg(), device)
+        probs = cs.regloop_problems(torch, full, default, device)
+        poses = [p.to(device) for p in cs.regloop_poses(torch)]
+        for name, t in cs.time_loops(torch, probs, poses).items():
+            key = f"loop_{name}"
+            out[f"{key}_iterations"] = t["iterations"]
+            out[f"{key}_us_per_iteration"] = \
+                t["device_ms_per_iteration"] * 1e3
+            out[f"{key}_few_points_us_per_iteration"] = \
+                t["few_points_device_ms_per_iteration"] * 1e3
+            out[f"{key}_ms"] = t["ms"]
     return out
 
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help="comma-separated subset of k1,k2")
+    ap.add_argument("--kernels", default="k1,k2",
+                    help="comma-separated subset of k1,k2,loop")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args(argv[1:])

@@ -34,6 +34,7 @@ import torch
 from ...core import geometry
 from ...core.geometry import cross
 from ...ops.segment import segment_sum
+from ...utils.device import resolve_device
 
 
 class FeatureMapState(NamedTuple):
@@ -299,13 +300,14 @@ class OdomEstimation:
     """Host orchestration of the reference class: constant-velocity
     prediction, bootstrap init, the solve, map maintenance.  The pose is
     kept on the host in float64; the maps and the solve live on
-    ``device``."""
+    ``device`` (the card unless asked for the CPU; a CUDA device without
+    a GPU raises, ``utils.device.resolve_device``)."""
 
     def __init__(self, *, edge_map_capacity: int = 8192,
                  surf_map_capacity: int = 16384, edge_leaf: float = 0.4,
                  surf_leaf: float | None = None, optimization_steps: int = 3,
-                 crop: float = 100.0, inner_iters: int = 4, device="cpu"):
-        self.device = torch.device(device)
+                 crop: float = 100.0, inner_iters: int = 4, device="cuda"):
+        self.device = resolve_device(device)
         self.edge_leaf = float(edge_leaf)
         self.surf_leaf = float(surf_leaf if surf_leaf is not None
                                else edge_leaf)

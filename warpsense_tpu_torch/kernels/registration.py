@@ -1,15 +1,16 @@
-"""Wrappers of CUDA kernels K3 (``ws_reg_stats``: one iteration's
-registration statistics) and K4 (``ws_reg_step``: one step of the GN or LM
-loop), ``csrc/registration.cu``.
+"""Wrapper of the registration loop kernel (``ws_reg_loop``,
+``csrc/registration.cu``): a whole GN or LM registration in one launch.
 
-They replace no TPU kernel: the JAX package runs its registration loops as
+It replaces no TPU kernel: the JAX package runs its registration loops as
 XLA code inside one ``lax.while_loop`` (``warpsense_tpu/ops/registration.py``
 ``_gn_loop`` :212, ``_lm_loop`` :572, statistics ``jacobian_stats_fields``
-:106 and ``make_packed_stats`` :454).  K3 and K4 keep that loop on the card:
-its carry is the state buffer of ``ops/registration.py`` (``S_*``).  A CUDA
-state launches the kernels (or raises); a CPU state runs the plain versions
-``ops/registration.reg_stats_plain`` and ``reg_step_plain``.  Each wrapper
-counts its launches (``launches``).
+:106 and ``make_packed_stats`` :454).  The loop kernel runs that loop on
+the card as one thread-block cluster: K3 (an iteration's statistics) and K4
+(the step) are its two halves, and its carry is the state buffer of
+``ops/registration.py`` (``S_*``).  A CUDA state launches the kernel (or
+raises); a CPU state runs the plain loop, ``reg_stats_plain`` and
+``reg_step_plain`` (``ops/registration.loop_plain``).  The wrapper counts
+its launches (``reg_loop.launches``).
 """
 from __future__ import annotations
 
@@ -17,35 +18,69 @@ import ctypes
 
 import torch
 
-from ..ops.registration import (LAYOUT_PARITY, PARTIALS, STATE_LEN,
-                                RegProblem, packed_shifts, reg_stats_plain,
-                                reg_step_plain)
+from ..ops.registration import (CHUNK, LAYOUT_PARITY, STATE_LEN, RegProblem,
+                                loop_plain, packed_shifts, reg_stats_plain,
+                                trace_width)
 from . import _build
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 
-# K3's block and its largest grid (two blocks an SM on an H100): the grid
-# is fixed by the point count alone, so the sums' order is too
-THREADS = 256
-MAX_BLOCKS = 264
+# a CTA's threads, and the CTAs of the one cluster a registration runs on
+# (csrc/registration.cu's kCluster): 16, the non-portable size, which an
+# H100 places, took 0.76-0.88 of the portable 8's device time an iteration
+# on every REGLOOP problem (PERF.md section 6)
+THREADS = 512
+CLUSTER = 16
+TRACE_WIDTH = trace_width(CLUSTER)
 
 
-def stats_blocks(n: int) -> int:
-    """K3's grid (and rows of partials) for ``n`` points."""
-    return max(1, min(-(-n // THREADS), MAX_BLOCKS))
+def thread_points(n: int, rank: int, thread: int, stride: int = 1) -> range:
+    """The points thread ``thread`` of CTA ``rank`` sums, in its order (the
+    loop kernel's plan, fixed by ``n`` alone): global thread g takes
+    every ``CLUSTER * THREADS``-th of the strided points from g on;
+    ``stride`` 4 in the coarse phase."""
+    g = rank * THREADS + thread
+    count = -(-n // stride)
+    return range(g * stride, count * stride, CLUSTER * THREADS * stride)
 
 
 def _lib():
     lib = _build.load("registration")
-    if lib.ws_reg_stats.argtypes is None:
-        lib.ws_reg_stats.argtypes = [_VP] * 14 + [_I, _VP]
-        lib.ws_reg_stats.restype = _I
-        lib.ws_reg_step.argtypes = [_VP, _VP, _I, _VP, _VP, _VP]
-        lib.ws_reg_step.restype = _I
+    if lib.ws_reg_loop.argtypes is None:
+        if lib.ws_reg_cluster() != CLUSTER:
+            raise RuntimeError(f"the loop kernel was built for clusters of "
+                               f"{lib.ws_reg_cluster()} CTAs, not {CLUSTER}")
+        lib.ws_reg_loop.argtypes = [_VP] * 16
+        lib.ws_reg_loop.restype = _I
+        lib.ws_reg_loop_clusters.argtypes = [_I]
+        lib.ws_reg_loop_clusters.restype = _I
+        lib.ws_reg_cluster_empty.argtypes = [_VP, _I, _VP]
+        lib.ws_reg_cluster_empty.restype = _I
         lib.ws_reg_empty.argtypes = [_VP]
         lib.ws_reg_empty.restype = _I
     return lib
+
+
+_placed: dict = {}
+
+
+def max_clusters(layout: int) -> int:
+    """How many clusters of the loop kernel the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, asked once per layout); raises
+    when the query fails or the cluster cannot be placed."""
+    key = (torch.cuda.current_device(), layout)
+    if key not in _placed:
+        n = _lib().ws_reg_loop_clusters(layout)
+        if n < 0:
+            _build.check(-n, f"cluster occupancy of the loop kernel "
+                         f"({CLUSTER} CTAs)")
+        if n < 1:
+            raise RuntimeError(f"a cluster of {CLUSTER} CTAs of "
+                               f"{THREADS} threads cannot be placed on "
+                               f"{torch.cuda.get_device_name()}")
+        _placed[key] = n
+    return _placed[key]
 
 
 def _on(t: torch.Tensor, dev, dtype, what: str) -> torch.Tensor:
@@ -54,9 +89,36 @@ def _on(t: torch.Tensor, dev, dtype, what: str) -> torch.Tensor:
     return t.to(dtype).contiguous()
 
 
-def _stats_launch(state: torch.Tensor, prob: RegProblem, scratch: dict):
-    """K3's arguments for this registration (checked once; the tensors
-    they point into are kept in ``scratch``)."""
+def reg_loop(state: torch.Tensor, prob: RegProblem, *, trace=None,
+             chunk: int = CHUNK) -> None:
+    """Run the registration loop of ``prob`` on ``state`` (in place, from
+    wherever its carry stands to the finished flag or max_iterations).
+
+    CUDA state: one launch of the loop kernel on the current stream, as a
+    cluster of ``CLUSTER`` CTAs (a failed build or launch, or a cluster
+    that cannot be placed, raises); nothing is read back.  CPU state: the
+    plain loop, reading its header once every ``chunk`` iterations.
+    ``trace``: None, or a zeroed float32 (max_iterations, ``TRACE_WIDTH``)
+    tensor on the state's device: row i gets the carry before step i and
+    the rows of statistics the step summed (the plain loop's one row, then
+    zeros)."""
+    if trace is not None and (trace.device != state.device
+                              or trace.dtype != torch.float32
+                              or tuple(trace.shape) != (
+                                  prob.max_iterations, TRACE_WIDTH)
+                              or not trace.is_contiguous()):
+        raise ValueError(f"trace must be contiguous float32 "
+                         f"({prob.max_iterations}, {TRACE_WIDTH}) "
+                         "on the state's device")
+    if state.device.type == "cpu":
+        loop_plain(state, prob, lambda st, cache: reg_stats_plain(
+            st, prob, cache), chunk=chunk, trace=trace)
+        return
+    if state.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.device}")
+    if state.dtype != torch.float32 or state.shape != (STATE_LEN,) \
+            or not state.is_contiguous():
+        raise ValueError("the state must be contiguous float32 of STATE_LEN")
     dev = state.device
     planes = [_on(p, dev, torch.int32, "a fields plane") for p in prob.fields]
     if len({tuple(p.shape) for p in planes}) != 1 or planes[0].dim() != 3:
@@ -74,8 +136,6 @@ def _stats_launch(state: torch.Tensor, prob: RegProblem, scratch: dict):
     if pos.numel() != 3 or offset.numel() != 3:
         raise ValueError("pos and offset must hold 3 ints")
     n = points.shape[0]
-    nb = stats_blocks(n)
-    partials = torch.empty((nb, PARTIALS), dtype=torch.float32, device=dev)
     if prob.split:
         cache = (torch.empty(n, dtype=torch.uint8, device=dev),
                  torch.empty(n, dtype=torch.float32, device=dev),
@@ -83,90 +143,44 @@ def _stats_launch(state: torch.Tensor, prob: RegProblem, scratch: dict):
                  torch.empty((n, 3), dtype=torch.int32, device=dev))
     else:
         cache = ()
+    max_clusters(prob.layout)
     vs, gs = packed_shifts(prob.tau) if prob.layout != LAYOUT_PARITY \
         else (0, 0)
-    ip = (ctypes.c_int * 13)(
+    ip = (ctypes.c_int * 15)(
         n, X, Y, Z, prob.resolution, prob.layout, vs, gs, int(prob.interp),
         int(prob.normalize), prob.coarse_iterations, int(prob.split),
-        prob.max_iterations)
+        prob.max_iterations, int(prob.lm), int(prob.recenter))
+    fp = (ctypes.c_float * 3)(prob.epsilon, prob.it_weight_gradient,
+                              prob.freeze_step_mm ** 2)
     ptr = [p.data_ptr() for p in planes] + [None] * (3 - len(planes))
     cptr = [t.data_ptr() for t in cache] or [None] * 4
-    args = (state.data_ptr(), points.data_ptr(), mask.data_ptr(), *ptr,
-            pos.data_ptr(), offset.data_ptr(), *cptr, partials.data_ptr(),
-            ctypes.cast(ip, _VP), nb,
-            torch.cuda.current_stream(dev).cuda_stream)
-    scratch["k3"] = dict(fn=_lib().ws_reg_stats, args=args, state=state,
-                         partials=partials,
-                         keep=(planes, points, mask, pos, offset, cache, ip))
-    return scratch["k3"]
+    rc = _lib().ws_reg_loop(
+        state.data_ptr(), points.data_ptr(), mask.data_ptr(), *ptr,
+        pos.data_ptr(), offset.data_ptr(), *cptr,
+        None if trace is None else trace.data_ptr(),
+        ctypes.cast(ip, _VP), ctypes.cast(fp, _VP),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "the registration loop kernel")
+    reg_loop.launches += 1
 
 
-def reg_stats(state: torch.Tensor, prob: RegProblem, scratch: dict):
-    """One iteration's statistics at the state's trial pose: K3's
-    per-block partials ((blocks, PARTIALS) float32, a buffer reused every
-    iteration of this registration) for a CUDA state; for a CPU state the
-    plain version's row (None once the loop stopped).  ``scratch``: a
-    dict kept for the registration (the plain version's gather cache)."""
-    if state.device.type == "cpu":
-        return reg_stats_plain(state, prob, scratch)
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
-    k3 = scratch.get("k3")
-    if k3 is None:
-        if state.dtype != torch.float32 or state.shape != (STATE_LEN,):
-            raise ValueError("the state must be float32 of STATE_LEN")
-        k3 = _stats_launch(state, prob, scratch)
-    elif k3["state"] is not state:
-        raise ValueError("scratch holds another state's launch")
-    _build.check(k3["fn"](*k3["args"]), "registration kernel K3")
-    reg_stats.launches += 1
-    return k3["partials"]
+reg_loop.launches = 0
 
 
-reg_stats.launches = 0
-
-
-def reg_step(state: torch.Tensor, partials, prob: RegProblem,
-             scratch: dict) -> None:
-    """One step of the loop, in place on ``state``, from one iteration's
-    partials: K4 for a CUDA state, the plain version for a CPU state.
-    ``scratch``: the registration's dict, as ``reg_stats`` takes it."""
-    if state.device.type == "cpu":
-        reg_step_plain(state, partials, prob)
-        return
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
-    k4 = scratch.get("k4")
-    if k4 is None or k4["partials"] is not partials \
-            or k4["state"] is not state:
-        if (partials.device != state.device or partials.dtype
-                != torch.float32 or partials.dim() != 2
-                or partials.shape[1] != PARTIALS
-                or not partials.is_contiguous()):
-            raise ValueError("partials must be contiguous (blocks, "
-                             f"{PARTIALS}) float32 on the state's device")
-        if state.dtype != torch.float32 or state.shape != (STATE_LEN,):
-            raise ValueError("the state must be float32 of STATE_LEN")
-        ip = (ctypes.c_int * 5)(int(prob.lm), int(prob.recenter),
-                                prob.coarse_iterations, int(prob.split),
-                                prob.max_iterations)
-        fp = (ctypes.c_float * 3)(prob.epsilon, prob.it_weight_gradient,
-                                  prob.freeze_step_mm ** 2)
-        k4 = scratch["k4"] = dict(
-            fn=_lib().ws_reg_step, partials=partials, state=state,
-            keep=(ip, fp),
-            args=(state.data_ptr(), partials.data_ptr(), partials.shape[0],
-                  ctypes.cast(ip, _VP), ctypes.cast(fp, _VP),
-                  torch.cuda.current_stream(state.device).cuda_stream))
-    _build.check(k4["fn"](*k4["args"]), "registration kernel K4")
-    reg_step.launches += 1
-
-
-reg_step.launches = 0
+def launch_cluster_empty(out: torch.Tensor, iterations: int) -> None:
+    """The empty cluster loop: the loop kernel's cluster shape doing only
+    each iteration's barrier and distributed-shared-memory read,
+    ``iterations`` times (the design's floor; not a launch of the loop
+    kernel).  ``out``: 32 float32 on the card."""
+    if not (out.is_cuda and out.dtype == torch.float32 and out.numel() >= 32):
+        raise ValueError("out must hold 32 float32 on the card")
+    _build.check(_lib().ws_reg_cluster_empty(
+        out.data_ptr(), iterations, torch.cuda.current_stream(out.device).cuda_stream),
+        "the empty cluster loop")
 
 
 def launch_empty(stream: int) -> None:
-    """One empty kernel on ``stream`` (a ``cuda_stream`` handle, taken
-    once as the wrappers take theirs): the launch floor K3 and K4 are
-    timed beside (not counted as a launch of either)."""
+    """One empty kernel on ``stream`` (a ``cuda_stream`` handle): one
+    launch's floor (not a launch of the loop kernel)."""
     _build.check(_lib().ws_reg_empty(stream), "empty kernel")
+

@@ -15,21 +15,23 @@ registration.cu:14-257 and tsdf_registration.cpp:28-105):
   (``kernels/fields.py``) computes them on the card, the roll formulation
   here is its plain version;
 * both loops run as the JAX ``lax.while_loop`` does: the loop's carry is
-  one float32 state buffer (``S_*``) on the device of the fields, and each
-  iteration is one statistics pass (CUDA kernel K3, ``reg_stats_plain``
-  its plain version) and one step (K4, ``reg_step_plain``: the damped 6x6
-  solve by LU, the pose update and the convergence tests).  The host
-  enqueues ``CHUNK`` iterations at a time and reads the state's header
-  once a chunk (``run_registration``); a finished state ignores the
-  iterations enqueued after it.  The sharded path keeps a host loop
+  one float32 state buffer (``S_*``) on the device of the fields.  On the
+  card a whole registration is one launch of the loop kernel
+  (``kernels/registration.reg_loop``, ``csrc/registration.cu``): a
+  thread-block cluster whose iterations are a statistics pass (K3,
+  ``reg_stats_plain`` its plain version) and a step (K4,
+  ``reg_step_plain``: the damped 6x6 solve by LU, the pose update and the
+  convergence tests), and the host reads the state's header once
+  (``run_registration``).  On the CPU the plain loop (``loop_plain``)
+  runs the same steps.  The sharded path keeps a host loop
   (``_gn_loop_host``, ``_lm_loop_host``), whose statistics are summed in
   rank order on the host every iteration.
 
 Numerics: the statistics are float32 sums whose order differs from XLA's,
 and the 6x6 solve is an explicit LU rather than XLA's, so poses agree with
 the JAX package within a tolerance (tests state it), not bit for bit.
-K4 and ``reg_step_plain`` run the same float32 operations in the same
-order.
+The loop kernel's step and ``reg_step_plain`` run the same float32
+operations in the same order.
 """
 from __future__ import annotations
 
@@ -134,7 +136,7 @@ def register_cloud_fields(fields: RegistrationFields, pos, offset, points,
                           epsilon: float, mode: str = "parity",
                           return_iterations: bool = False):
     """GN registration against cached ``precompute_fields`` output, the
-    loop on the device of ``fields`` (kernels K3 and K4 on the card).
+    loop on the device of ``fields`` (the loop kernel on the card).
 
     ``mode="parity"``: the reference's scheme — un-normalized voxel
     gradient and the rotation centered on the INITIAL translation;
@@ -274,7 +276,7 @@ def register_cloud_packed(fields, pos, offset, points, mask, pretransform, *,
     Solver, convergence and ``gather_freeze`` are those of the JAX function
     (adaptive Levenberg-Marquardt with Marquardt scaling; stop on a step
     below the residual noise floor or on the 4-round error window); the
-    loop runs on the device of ``fields`` (kernels K3 and K4 on the
+    loop runs on the device of ``fields`` (the loop kernel on the
     card)."""
     del it_weight_gradient   # parity-mode ramp; LM adapts alpha itself
     prob = RegProblem(
@@ -388,22 +390,20 @@ def make_packed_stats_split(fields, pos, offset, points, mask, *, size,
 # as csrc/registration.cu's S_* enum: JAX's ``init`` of _lm_loop (i, acc,
 # accH, accg, acc_err, alpha, trial, prev, frozen, finished) and of _gn_loop
 # (i, total = trial, alpha, prev, finished, and the fixed center).  The
-# header (the first S_HEAD floats) is what the host reads once a chunk.
+# header (the first S_HEAD floats) is what the host reads after the loop.
 
 S_I, S_FIN, S_ERR, S_FROZEN, S_ALPHA, S_IMPROVED, S_OK = range(7)
 S_HEAD = 8
 S_PREV, S_CENTER, S_TRIAL, S_ACC, S_ACCH, S_ACCG = 8, 12, 16, 32, 48, 84
 STATE_LEN = 96
-# one row of K3's partials: H's upper triangle (row-major), g, e, c, zeros
+# one row of statistics (the loop kernel sums one a CTA): H's upper
+# triangle (row-major), g, e, c, zeros
 PARTIALS, SUMS = 32, 29
-# K4 sums the partials' rows in this many interleaved lanes, then the lanes
+# the step sums the rows in this many interleaved lanes, then the lanes
 STEP_LANES = 8
 LAYOUT_PARITY, LAYOUT_PACKED, LAYOUT_EXACT = 0, 1, 2
-# iterations enqueued between two reads of the header: a fast-mode LM
-# registration converges in ~5-15 (one or two reads), parity GN in tens to
-# ~130; an iteration enqueued past the finish costs two launches that
-# return at once (a few microseconds), a read a sync (the device idles
-# until the host enqueues the next chunk)
+# the plain loop's iterations between two reads of its header: a finished
+# state ignores the iterations after it, so the size changes no bit
 CHUNK = 8
 
 _UPPER = torch.triu_indices(6, 6)
@@ -585,9 +585,9 @@ def xi_to_transform_plain(xi: torch.Tensor, center: torch.Tensor,
 
 
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:
-    """K4's sum of the partials' rows: STEP_LANES interleaved lanes (rows
-    l, l + STEP_LANES, ...) each summed in row order, then the lanes in
-    order."""
+    """K4's sum of the rows of statistics (the loop kernel's CTAs' rows):
+    STEP_LANES interleaved lanes (rows l, l + STEP_LANES, ...) each summed
+    in row order, then the lanes in order."""
     total = torch.zeros(PARTIALS, dtype=torch.float32,
                         device=partials.device)
     for lane in range(STEP_LANES):
@@ -598,9 +598,12 @@ def sum_partials(partials: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem) -> None:
+def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem):
     """Plain version of K4: one step of the loop on ``state`` (in place)
-    from one iteration's ``partials``; nothing once the loop stopped.
+    from one iteration's ``partials`` (rows of statistics); nothing once
+    the loop stopped.  Returns the float32 values its tests compared
+    (``err`` and the window's ``prev``; LM also ``acc_err``, ``err2``,
+    ``rot2``, ``tr2``), or None when it did nothing.
 
     GN (``_gn_loop``): (H + alpha c diag(D^2)) y = -g (the identity for an
     empty system), xi = D y, the pose update about the fixed center (the
@@ -612,7 +615,7 @@ def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem) -> None:
     the tests: tiny step, the 4-error window, a non-finite step; the
     gather freeze.  Thresholds compare in float32."""
     if partials is None or _stopped(state, prob):
-        return
+        return None
     s = state
     f32 = torch.float32
     i = int(s[S_I])
@@ -647,7 +650,7 @@ def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem) -> None:
         s[S_FIN] = float(fin)
         s[S_ALPHA] = s[S_ALPHA] + _c32(prob.it_weight_gradient, s)
         s[S_I] = i + 1
-        return
+        return dict(err=err, prev=prev)
     D = torch.tensor([_SCP] * 3 + [1.0] * 3, dtype=f32, device=s.device)
     acc_err = s[S_ERR].clone()
     err = (e / torch.maximum(c, _c32(1.0, s)) if bool(c > 0.0)
@@ -691,19 +694,106 @@ def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem) -> None:
     s[S_OK] = float(ok)
     s[S_FIN] = float(tiny or window or not ok)
     s[S_I] = i + 1
+    return dict(err=err, prev=prev, acc_err=acc_err, err2=err2, rot2=rot2,
+                tr2=tr2)
 
 
-def host_loop(prob: RegProblem, pretransform, stats_row) -> torch.Tensor:
-    """The loop on the CPU, one iteration at a time: ``stats_row(state,
-    cache)`` gives an iteration's partials on the CPU, ``reg_step_plain``
-    takes the step.  The loop the device loop is checked against
+def trace_width(rows: int) -> int:
+    """Floats in a row of a loop trace with ``rows`` rows of statistics:
+    the carry before the step, then the rows."""
+    return STATE_LEN + rows * PARTIALS
+
+
+def loop_plain(state: torch.Tensor, prob: RegProblem, stats_row, *,
+               chunk: int = 1, trace=None) -> None:
+    """The loop on ``state`` (in place) one iteration at a time:
+    ``stats_row(state, cache)`` gives an iteration's row of statistics on
+    the state's device, ``reg_step_plain`` takes the step; the header is
+    read once every ``chunk`` iterations (a finished state ignores the
+    rest of a chunk, so ``chunk`` changes no bit).  ``trace``: as
+    ``kernels.registration.reg_loop`` takes it; row i gets the carry before
+    step i, the row of statistics and zeros for the other rows."""
+    cache: dict = {}
+    while not _stopped(state, prob):
+        for _ in range(chunk):
+            if _stopped(state, prob):
+                break
+            row = stats_row(state, cache)
+            if trace is not None:
+                t = trace[int(state[S_I])]
+                t.zero_()
+                t[:STATE_LEN] = state
+                t[STATE_LEN:STATE_LEN + PARTIALS] = row.reshape(PARTIALS)
+            reg_step_plain(state, row, prob)
+
+
+def host_loop(prob: RegProblem, pretransform, stats_row, *,
+              trace=None) -> torch.Tensor:
+    """The loop with its state on the CPU (``loop_plain`` from
+    ``init_state``): ``stats_row(state, cache)`` gives an iteration's
+    partials on the CPU.  The loop the loop kernel is checked against
     (``run_registration(host=True)``) and the sharded path's (its
     statistics summed across ranks)."""
     state = init_state(prob, pretransform, "cpu")
-    cache: dict = {}
-    while not _stopped(state, prob):
-        reg_step_plain(state, stats_row(state, cache), prob)
+    loop_plain(state, prob, stats_row, trace=trace)
     return state
+
+
+def replay_trace(trace: torch.Tensor, final: torch.Tensor,
+                 prob: RegProblem):
+    """Replay the trace of a loop from ``init_state`` with the plain step:
+    for each traced iteration k, ``reg_step_plain`` from the carry traced
+    before step k on the rows traced with it, held to the carry traced
+    before step k + 1 (after the last step: ``final``, the loop's end
+    state).  Returns (the replayed end state, the steps whose result
+    differs in any bit, the values each step's tests compared, the largest
+    absolute difference of a replayed carry from the traced one: 0 when
+    every step is bit-equal, inf where they differ in a NaN or an
+    infinity).  On the CPU."""
+    trace, final = trace.cpu(), final.cpu()
+    steps = int(final[S_I])
+    out = final.clone()
+    differ, tests, err = [], [], 0.0
+    for k in range(steps):
+        out = trace[k, :STATE_LEN].clone()
+        tests.append(reg_step_plain(
+            out, trace[k, STATE_LEN:].reshape(-1, PARTIALS), prob))
+        want = trace[k + 1, :STATE_LEN] if k + 1 < steps else final
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            differ.append(k)
+            d = (out.double() - want.double()).abs()
+            d[out.view(torch.int32) == want.view(torch.int32)] = 0.0
+            err = max(err, float(d.nan_to_num(nan=float("inf")).max()))
+    return out, differ, tests, err
+
+
+def trace_stats(trace: torch.Tensor, iterations: int,
+                prob: RegProblem) -> list:
+    """Each traced iteration's rows of statistics, summed in the step's
+    order (``sum_partials``), against ``reg_stats_plain`` at the traced
+    carry (its cache gathered where the loop's was): a dict an iteration
+    with its mode, c and the plain version's c, and H's, g's and e's
+    largest difference relative to the plain version's largest entry."""
+    cache: dict = {}
+    host = trace[:iterations].cpu()
+    out = []
+    for k in range(iterations):
+        if prob.lm and k < prob.coarse_iterations:
+            mode = "coarse"
+        elif prob.split:
+            mode = "cached" if bool(host[k, S_FROZEN]) else "gather"
+        else:
+            mode = "full"
+        got = sum_partials(host[k, STATE_LEN:].reshape(-1, PARTIALS)).double()
+        want = reg_stats_plain(trace[k, :STATE_LEN].clone(), prob,
+                               cache)[0].cpu().double()
+        rel = {key: float((got[lo:hi] - want[lo:hi]).abs().max()
+                          / max(float(want[lo:hi].abs().max()), 1e-30))
+               for key, lo, hi in (("H_rel", 0, 21), ("g_rel", 21, 27),
+                                   ("e_rel", 27, 28))}
+        out.append(dict(mode=mode, c=float(got[28]), c_plain=float(want[28]),
+                        **rel))
+    return out
 
 
 def _loop_problem(**kw) -> RegProblem:
@@ -765,38 +855,31 @@ def _lm_loop_host(stats, pretransform, *, max_iterations, epsilon,
 
 
 def run_registration(prob: RegProblem, pretransform, *, chunk: int = CHUNK,
-                     host: bool = False):
+                     host: bool = False, trace=None):
     """Run one registration loop; returns (final state, its header as a
     list of floats).
 
-    The state lives on the device of ``prob.points``; each iteration is
-    one ``kernels.registration.reg_stats`` (K3) and one ``reg_step`` (K4)
-    — on a CUDA state the kernels (a build or launch failure raises), on
-    a CPU state their plain versions.  ``chunk`` iterations are enqueued
-    between two reads of the header, so a registration of n iterations
-    reads the card ceil(n / chunk) times (``run_registration.syncs``) and
-    leaves the pose on the card.  ``host``: the state on the CPU and the
-    plain versions for any device (statistics where the fields lie, one
-    copy each way an iteration): the loop the kernels are checked
-    against."""
-    from ..kernels.registration import reg_stats, reg_step
+    The state lives on the device of ``prob.points`` and the loop is
+    ``kernels.registration.reg_loop``: on a CUDA state one launch of the
+    loop kernel (a build or launch failure raises) and one read of the
+    header (``run_registration.syncs``), the pose left on the card; on a
+    CPU state the plain loop, its header read once every ``chunk``
+    iterations.  ``host``: the state on the CPU and the plain versions for
+    any device (statistics where the fields lie, one copy each way an
+    iteration): the loop the kernel is checked against.  ``trace``: as
+    ``reg_loop`` takes it (with ``host``: on the CPU, one row of
+    statistics)."""
+    from ..kernels.registration import reg_loop
     t0 = time.perf_counter()
     if host:
         state = host_loop(prob, pretransform, lambda st, cache: (
-            reg_stats_plain(st, prob, cache).cpu()))
-        head = state[:S_HEAD].tolist()
+            reg_stats_plain(st, prob, cache).cpu()), trace=trace)
     else:
         state = init_state(prob, pretransform, prob.points.device)
-        scratch: dict = {}
-        while True:
-            for _ in range(chunk):
-                reg_step(state, reg_stats(state, prob, scratch), prob,
-                         scratch)
-            head = state[:S_HEAD].tolist()
-            if state.is_cuda:
-                run_registration.syncs += 1
-            if head[S_FIN] or head[S_I] >= prob.max_iterations:
-                break
+        reg_loop(state, prob, chunk=chunk, trace=trace)
+    head = state[:S_HEAD].tolist()
+    if state.is_cuda:
+        run_registration.syncs += 1
     run_registration.calls += 1
     run_registration.iterations += int(head[S_I])
     run_registration.seconds += time.perf_counter() - t0
@@ -806,7 +889,7 @@ def run_registration(prob: RegProblem, pretransform, *, chunk: int = CHUNK,
 def reset_registration_counts() -> None:
     """Zero ``run_registration``'s counts: ``calls`` (registrations),
     ``iterations`` (their sum), ``syncs`` (header reads of a CUDA state)
-    and ``seconds`` (host clock from the first enqueue to the last read,
+    and ``seconds`` (host clock from the launch to the header's read,
     which waits for the card)."""
     run_registration.syncs = 0
     run_registration.calls = 0
