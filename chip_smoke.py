@@ -49,9 +49,16 @@ Phases (each raises on failure; nothing falls back to the CPU):
    header read); then the loop kernel timed per registration and per
    iteration, beside its device time, the empty cluster loop and its
    bound, and the plain versions, an empty kernel and
-   solve_ex on one 6x6 system.  Every registration of the apps below is
-   one launch of the loop kernel and one header read (checked); each app
-   prints its registrations' iterations, host syncs and loop time;
+   solve_ex on one 6x6 system.  Then the sharded loop at a world of one
+   (no group; K3 as shard_stats_kernel, K4 as shard_step_kernel, CHUNK
+   iterations enqueued between two header reads) from REGLOOP's starts:
+   its end state, header and every traced row equal to the loop kernel's
+   to the bit, ceil(iterations / CHUNK) syncs (sync debug mode) and CHUNK
+   launches of each kernel a read; then its time a registration and its
+   kernels' device time an iteration beside the bound.  Every
+   registration of the apps below is one launch of the loop kernel and one
+   header read (checked); each app prints its registrations' iterations,
+   host syncs and loop time;
 6. WarpsenseApp(device="cuda") in fast mode at the application config:
    10 synthetic scans with one or more map shifts, then terminate();
    finite poses, ATE below ATE_BOUND_M, both kernels launched;
@@ -94,11 +101,21 @@ Phases (each raises on failure; nothing falls back to the CPU):
    on APP's walk as two spawned ranks on the one card over gloo (NCCL
    refuses two ranks on one device), the window 626 x 625 x 235 (313 x-rows
    a rank): the same pose on every rank after every scan, ATE below APP's
-   bound, K1 launched on every rank once per fused scan and K2 launched; a
-   one-scan sharded fusion and the sharded fields of the app's map,
-   gathered, equal to the single-GPU kernels' (0 mismatches); each rank's
-   spans, peak memory and its gloo staging (halo exchange, statistics
-   sum); then an NCCL group of one rank for one scan;
+   bound, K1 launched on every rank once per fused scan and K2 launched,
+   the sharded loop's kernels (shard_stats_kernel, shard_step_kernel)
+   CHUNK times a header read on every rank (each rank prints its
+   [registration sharded] report); the rank's last registration run again
+   traced, every traced step replayed by the plain step to the bit, the
+   rank's own rows of every traced iteration (its slab's statistics)
+   against reg_stats_plain on its slab (c equal, H / g / e within
+   REGLOOP["k3_rtol"]), and the ranks' traces equal; a one-scan sharded fusion and the sharded
+   fields of the app's map, gathered, equal to the single-GPU kernels' (0
+   mismatches); each rank's spans, peak memory and its gloo staging (halo
+   exchange, the rows' all-gather); then an NCCL group of one rank on
+   APP's 10 scans, each pose equal to the single-GPU WarpsenseApp's at the
+   same window and settings to the bit, at most ceil(iterations / CHUNK)
+   syncs a registration (sync debug mode), its traced registration
+   replayed;
 14. utils.device_query --bandwidth (one JSON line per card);
 15. eval.feature_compare on the card on one synthetic 128 x 1024 scan: the
    device picks within 1% of the host twin's (Jaccard at least 0.99), with
@@ -106,8 +123,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
 
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
-the calls that ran the general sweep).  The sharded paths keep a host
-registration loop, so they launch no loop kernel.
+the calls that ran the general sweep); K3's and K4's on the sharded paths
+as shard_stats_kernel and shard_step_kernel (sharded_launches_by_path).
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -117,6 +134,7 @@ when no CUDA device is available or the package is missing.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import importlib
 import json
 import math
@@ -247,11 +265,14 @@ SLAM_EVAL_JAX_ATE_M = {"warpsense": 0.0039, "featsense": 0.0063}
 # the multi-GPU layer: ShardedWarpsenseApp at APP's settings on APP's walk,
 # two ranks on the one card over gloo (NCCL refuses two ranks on one
 # device), so FULL's x extent 625 rounds up to 626 (313 rows a rank) and
-# the shift is synchronous; then an NCCL group of one rank for one scan.
-# Held to APP's ATE bound, equal poses on every rank, and the gathered
-# one-scan fusion and fields equal to the single-GPU kernels' bits.
+# the shift is synchronous; then an NCCL group of one rank on the same
+# scans beside the single-GPU WarpsenseApp at the same window and settings
+# (force_odd=False, the synchronous shift, the level grid), run in the
+# same process.  Held to APP's ATE bound, equal poses on every rank, the
+# gathered one-scan fusion and fields equal to the single-GPU kernels'
+# bits, the NCCL rank's poses the single-GPU app's bits.
 SHARDED = dict(APP, size=(626, 625, 235), world=2, backend="gloo",
-               device="cuda:0", join_timeout_s=600, nccl_scans=1)
+               device="cuda:0", join_timeout_s=600)
 # feature_compare on one synthetic 128 x 1024 scan, with capacities above
 # the scan's feature counts so the device sets are not cut
 FEATURE_COMPARE = dict(channels=128, columns=1024, edge_capacity=4096,
@@ -819,20 +840,30 @@ def count_syncs(torch, fn, where=None):
     """(fn's result, the synchronizing CUDA operations it ran), counted by
     PyTorch's sync debug mode (every device-to-host copy, host-to-device
     copy from pageable memory and stream wait warns once); ``where``
-    (a dict) collects each one's Python file:line."""
+    (a dict) collects each one's Python file:line and its two callers'."""
+    import traceback
     import warnings
+    syncs = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            syncs.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in reversed(stack[-3:])))
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        # the mode switch's own warning (once a process) is not fn's
+        warnings.showwarning = lambda *a, **k: None
         torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = hook
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
     if where is not None:
-        for w in syncs:
-            key = f"{Path(w.filename).name}:{w.lineno}"
+        for key in syncs:
             where[key] = where.get(key, 0) + 1
     return out, len(syncs)
 
@@ -856,13 +887,16 @@ def loop_traced(torch, prob, pose, where=None):
     return st, head, trace, syncs
 
 
-def trace_stats(prob, trace, iterations) -> dict:
-    """REGLOOP (a) on one traced run (``ops/registration.trace_stats``):
-    c equal and H / g / e within REGLOOP["k3_rtol"] in every iteration;
-    the worst of each, the modes the run went through, each iteration's
-    mode and c (valid points) and the iterations that fail."""
+def trace_stats(prob, trace, iterations, rows=None) -> dict:
+    """REGLOOP (a) on one traced run (``ops/registration.trace_stats``;
+    ``rows``: a rank's rows of a sharded trace, ``prob`` its slab): c
+    equal and H / g / e within REGLOOP["k3_rtol"] in every iteration; the
+    worst of each, the modes the run went through, each iteration's mode
+    and c (valid points) and the iterations that fail.  Without ``rows``
+    it runs on an older checkout's package too (tools/kernel_ab.py)."""
     from warpsense_tpu_torch.ops import registration as treg
-    its = treg.trace_stats(trace, iterations, prob)
+    its = treg.trace_stats(trace, iterations, prob, *(
+        () if rows is None else (rows,)))
     keys = ("H_rel", "g_rel", "e_rel")
     worst = {k: max((r[k] for r in its), default=0.0) for k in keys}
     bad = [dict(iteration=k, **r) for k, r in enumerate(its)
@@ -1088,7 +1122,7 @@ def check_loops(torch, probs, poses) -> dict:
     return report
 
 
-def loop_cost(prob, modes, valid) -> tuple:
+def loop_cost(prob, modes, valid, rows=None, iteration_bytes=0) -> tuple:
     """Bytes and float32 ops of one registration of the loop kernel, from
     its trace's modes and valid counts: per iteration each point's int32
     xyz and mask byte read once (every 4th point in the coarse phase), each
@@ -1096,9 +1130,12 @@ def loop_cost(prob, modes, valid) -> tuple:
     gather's per-point cache written (29 B) or the cached mode's read (its
     valid byte a point, 28 B a valid point) in place of mask and gather;
     the carry read and written once; K3_OPS_* a valid point and K4_OPS_STEP
-    plus one add a column a CTA row a step."""
+    plus one add a column a row of statistics (``rows``, the cluster's
+    CTAs by default) a step.  ``iteration_bytes``: bytes an iteration moves
+    besides (the sharded loop's carry and rows through device memory)."""
     from warpsense_tpu_torch.kernels.registration import CLUSTER
     from warpsense_tpu_torch.ops import registration as treg
+    rows = CLUSTER if rows is None else rows
     n = prob.points.shape[0]
     gathered = {treg.LAYOUT_PACKED: 4, treg.LAYOUT_EXACT: 8,
                 treg.LAYOUT_PARITY: 12}[prob.layout]
@@ -1112,7 +1149,8 @@ def loop_cost(prob, modes, valid) -> tuple:
             pts = -(-n // 4) if mode == "coarse" else n
             nbytes += 13 * pts + gathered * v + (29 * n if mode == "gather"
                                                  else 0)
-        ops += per_point * v + K4_OPS_STEP + treg.SUMS * CLUSTER
+        nbytes += iteration_bytes
+        ops += per_point * v + K4_OPS_STEP + treg.SUMS * rows
     return nbytes, ops
 
 
@@ -1244,6 +1282,102 @@ def time_plain(torch, probs, poses) -> dict:
     return out
 
 
+def check_shard_loops(torch, probs, poses) -> dict:
+    """SHARDLOOP (a): the sharded loop at a world of one (no group) from
+    each of REGLOOP's starts, traced, against the loop kernel's traced
+    registration from the same start: end state, header and every trace
+    row equal to the bit; its synchronizing operations (the header reads:
+    ceil(iterations / CHUNK)) and each kernel's launches (CHUNK a read)."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.ops import registration as treg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    mesh = make_mesh(poses[0].device)
+    report = {}
+    for name, prob in probs.items():
+        run_registration_sharded(prob, poses[0], mesh)          # warm-up
+        runs, where = [], {}
+        for j, pose in enumerate(poses):
+            st, head, trace, _ = loop_traced(torch, prob, pose)
+            strace = torch.zeros_like(trace)
+            before = (kreg.shard_stats.launches, kreg.shard_step.launches)
+            (sst, shead), syncs = count_syncs(
+                torch, lambda: run_registration_sharded(
+                    prob, pose, mesh, trace=strace), where)
+            n = int(head[treg.S_I])
+            runs.append(dict(
+                pose=j, iterations=n, shard_iterations=int(shead[treg.S_I]),
+                bit_equal=bool(torch.equal(sst, st) and shead == head
+                               and torch.equal(strace, trace)),
+                syncs=syncs, reads=-(-n // treg.CHUNK),
+                stats_launches=kreg.shard_stats.launches - before[0],
+                step_launches=kreg.shard_step.launches - before[1]))
+        report[name] = runs
+        log(f"[SHARDLOOP {name}]", json.dumps(dict(runs=runs,
+                                                   syncs_at=where)))
+        for r in runs:
+            if not r["bit_equal"]:
+                raise AssertionError(f"the sharded loop at a world of one "
+                                     f"is not the loop kernel's ({name}): "
+                                     f"{r}")
+            if r["syncs"] != r["reads"] or r["stats_launches"] != \
+                    r["step_launches"] or r["stats_launches"] != \
+                    r["reads"] * treg.CHUNK:
+                raise AssertionError(f"the sharded loop did not read its "
+                                     f"header once a chunk of CHUNK "
+                                     f"launches ({name}; at {where}): {r}")
+    return report
+
+
+def time_shard_loops(torch, probs, poses) -> dict:
+    """SHARDLOOP (b): time_loops' problems through the sharded loop at a
+    world of one (no group) from the first pose: one registration between
+    CUDA events (``ms``, with its header reads), and the device time of
+    shard_stats_kernel and shard_step_kernel (torch.profiler), per
+    registration and per iteration (every launch of the registration,
+    those after the carry finished included), beside the bound of the
+    same work: ``loop_cost`` of its trace with CLUSTER rows an iteration
+    plus the carry's and the rows' trips through device memory."""
+    from warpsense_tpu_torch.kernels.registration import CLUSTER
+    from warpsense_tpu_torch.ops import registration as treg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    mesh = make_mesh(poses[0].device)
+    timed = dict(packed_app=probs["packed"]._replace(coarse_iterations=0),
+                 **probs)
+    names = ("shard_stats_kernel", "shard_step_kernel")
+    out = {}
+    for name, prob in timed.items():
+        trace = torch.zeros((prob.max_iterations,
+                             treg.trace_width(CLUSTER)), device=poses[0].device)
+        st, head = run_registration_sharded(prob, poses[0], mesh,
+                                            trace=trace)
+        n = int(head[treg.S_I])
+        launches = -(-n // treg.CHUNK) * treg.CHUNK
+        stats = trace_stats(prob, trace, n)
+        ms = time_ms(torch, lambda: run_registration_sharded(
+            prob, poses[0], mesh))
+        us = kernel_device_us(torch, lambda: run_registration_sharded(
+            prob, poses[0], mesh), names, reps=20)
+        # an iteration: the carry read by both launches and written by the
+        # step, this rank's rows written and read
+        row_bytes = CLUSTER * treg.PARTIALS * 4
+        nbytes, ops = loop_cost(prob, stats["mode_by_iteration"],
+                                stats["valid"], rows=CLUSTER,
+                                iteration_bytes=3 * 4 * treg.STATE_LEN
+                                + 2 * row_bytes)
+        dev_ms = (us[names[0]] + us[names[1]]) * launches / 1e3
+        t = dict(iterations=n, launches=launches, ms=ms, device_ms=dev_ms,
+                 shard_stats_device_us_per_launch=us[names[0]],
+                 shard_step_device_us_per_launch=us[names[1]],
+                 **bound(nbytes, ops, dev_ms))
+        for key in ("ms", "device_ms", "bound_ms"):
+            t[f"{key}_per_iteration"] = t[key] / max(n, 1)
+        out[name] = t
+        log(f"[time shard loop {name}]", json.dumps(t))
+    return out
+
+
 def kernel_device_us(torch, fn, names, reps=50) -> dict:
     """Mean device time (us) of each kernel whose name holds one of
     ``names``, over ``reps`` calls of ``fn`` under torch.profiler."""
@@ -1268,13 +1402,16 @@ def kernel_device_us(torch, fn, names, reps=50) -> dict:
 
 def run_regloop(torch, full_state, default_state, device) -> dict:
     """REGLOOP: (a)-(c) the loop kernel against the plain versions and
-    the host loop, then (e)'s times.  Its own launches are not the main
-    paths'."""
+    the host loop, then (e)'s times; SHARDLOOP: the sharded loop at a
+    world of one against the loop kernel, then its times.  Their own
+    launches are not the main paths'."""
     probs = regloop_problems(torch, full_state, default_state, device)
     poses = [p.to(device) for p in regloop_poses(torch)]
     out = dict(loops=check_loops(torch, probs, poses),
                times=time_loops(torch, probs, poses),
-               plain=time_plain(torch, probs, poses))
+               plain=time_plain(torch, probs, poses),
+               shard_loops=check_shard_loops(torch, probs, poses),
+               shard_times=time_shard_loops(torch, probs, poses))
     runs = [r for rs in out["loops"].values() for r in rs]
     out["max_abs_err"] = dict(
         K3=max(max(r["H_rel"], r["g_rel"], r["e_rel"]) for r in runs),
@@ -1450,7 +1587,9 @@ def default_params(**map_overrides):
 def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
-    from warpsense_tpu_torch.kernels.registration import reg_loop
+    from warpsense_tpu_torch.kernels.registration import (reg_loop,
+                                                          shard_stats,
+                                                          shard_step)
     from warpsense_tpu_torch.ops.registration import \
         reset_registration_counts
     fusion_sweep_merge.launches = 0
@@ -1458,24 +1597,31 @@ def reset_launches() -> None:
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
     reg_loop.launches = 0
+    shard_stats.launches = 0
+    shard_step.launches = 0
     reset_registration_counts()
 
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
     sweep), K2's ("fields", and its aligned copies "fields_staged"), the
-    loop kernel's ("reg_loop", which runs K3 and K4), and the
-    registrations' counts: registrations, their iterations, header reads
-    (host syncs) and host seconds."""
+    loop kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
+    ("shard_stats": K3, "shard_step": K4), and the registrations' counts:
+    registrations, their iterations, header reads (host syncs) and host
+    seconds."""
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
-    from warpsense_tpu_torch.kernels.registration import reg_loop
+    from warpsense_tpu_torch.kernels.registration import (reg_loop,
+                                                          shard_stats,
+                                                          shard_step)
     from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
             "reg_loop": reg_loop.launches,
+            "shard_stats": shard_stats.launches,
+            "shard_step": shard_step.launches,
             "registrations": run_registration.calls,
             "reg_iterations": run_registration.iterations,
             "reg_syncs": run_registration.syncs,
@@ -1923,13 +2069,16 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
 
     sys.path.insert(0, str(ROOT))
     from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.registration import CLUSTER
     from warpsense_tpu_torch.map.local_map import LocalMapState, create_state
     from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.ops import registration as treg
     from warpsense_tpu_torch.ops.preprocess import preprocess
     from warpsense_tpu_torch.ops.tsdf_projective import \
         tsdf_update_projective
     from warpsense_tpu_torch.parallel import sharded as sh
     from warpsense_tpu_torch.parallel.distributed import gather_state
+    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
     from warpsense_tpu_torch.pipeline.warpsense_sharded import \
         ShardedWarpsenseApp
 
@@ -1945,13 +2094,42 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
         torch.cuda.reset_peak_memory_stats(device)
     dist.init_process_group(backend, store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
+    # every registration of the app through the sharded loop: its
+    # iterations and synchronizing operations (sync debug mode: the header
+    # reads, and with gloo the rows' staging), and the last one's problem,
+    # pretransform and end state
+    run_loop = sh.run_registration_sharded
+    regs, last, where = [], [], {}
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = run_loop(*a, **kw)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counted(prob, pretransform, mesh, **kw):
+        # host clock of the loop alone: count_syncs waits for the queued
+        # work first
+        ((state, head), ms), syncs = count_syncs(torch, lambda: timed(
+            prob, pretransform, mesh, **kw), where) if cuda else (
+            timed(prob, pretransform, mesh, **kw), 0)
+        regs.append(dict(iterations=int(head[treg.S_I]), syncs=syncs,
+                         ms=ms))
+        last[:] = [prob, pretransform, state]
+        return state, head
+    sh.run_registration_sharded = counted
+    if backend == "nccl":
+        # NCCL creates its communicator at the group's first collective
+        # (with host syncs): set-up, before the app
+        dist.all_reduce(torch.zeros(1, device=device))
+        sync()
     try:
         mesh = sh.make_mesh(device)
         _, scans = app_scans(cfg)
         params = app_params(cfg)
         app = ShardedWarpsenseApp(params, mesh=mesh, in_memory_map=True,
                                   capacity=cfg["capacity"],
-                                  window_size=cfg["size"], profile=True)
+                                  window_size=cfg["size"], sync_shift=True,
+                                  profile=True)
         fused = []
         update = app._update_tsdf
 
@@ -1969,14 +2147,76 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
             sync()
             scan_ms.append((time.perf_counter() - t0) * 1e3)
         launches = read_launches()
+        sh.run_registration_sharded = run_loop
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
         stages = {r["task"]: r["avg"] / 1000.0 for r in ev.to_rows()}
         out = dict(rank=rank, world=world, backend=backend,
                    poses=np.stack(poses).tolist(), scan_ms=scan_ms,
                    fused_scans=fused, launches=launches,
+                   registrations=regs, syncs_at=where,
                    stage_avg_ms=stages, peak_bytes=peak,
                    slab=list(sh.slab_rows(mesh, cfg["size"][0])),
                    window_pos=app.state.pos.cpu().tolist())
+        # the last registration again, traced: every step replayed by the
+        # plain step, the end state the app's, the trace's digest (equal
+        # on every rank)
+        prob, pretransform, app_state = last
+        trace = torch.zeros((prob.max_iterations, treg.trace_width(
+            world * (CLUSTER if cuda else 1))), device=device)
+        st, head = run_loop(prob, pretransform, mesh, trace=trace)
+        _, differ, tests, err = treg.replay_trace(trace, st, prob)
+        # this rank's rows of each traced iteration (shard_stats_kernel on
+        # its slab) against reg_stats_plain on the slab
+        k = CLUSTER if cuda else 1
+        stats = trace_stats(prob, trace, int(head[treg.S_I]),
+                            slice(rank * k, (rank + 1) * k))
+        out["traced"] = dict(
+            iterations=int(head[treg.S_I]), steps_replayed=len(tests),
+            steps_differ=differ, max_abs_err=err,
+            slab=list(treg.slab_of(prob)), stats_modes=stats["modes"],
+            stats_valid=stats["valid"], stats_bad=stats["bad"],
+            stats_max_rel_err=max(stats[key] for key in (
+                "H_rel", "g_rel", "e_rel")),
+            equal_to_app=bool(torch.equal(st, app_state)),
+            digest=hashlib.sha256(trace.cpu().numpy().tobytes()
+                                  + st.cpu().numpy().tobytes()).hexdigest())
+        del trace, st
+        # the last registration's host clock repeated (after a sync, no
+        # sync debug mode), and where one registration's host time goes
+        # (torch.profiler: each operator's host and device time)
+        ms = []
+        for _ in range(11):
+            sync()
+            t0 = time.perf_counter()
+            run_loop(prob, pretransform, mesh)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["loop_ms_repeated"] = sorted(ms)[5]
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_loop(prob, pretransform, mesh)
+                sync()
+            ops = sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total)
+            out["loop_profile"] = [dict(
+                name=e.key[:60], count=e.count,
+                host_us=e.cpu_time_total,
+                device_us=getattr(e, "self_device_time_total", 0))
+                for e in ops[:10]]
+        del last[:]
+        if cfg.get("single_app"):
+            # the single-GPU app at the same window and settings, in this
+            # process, after the sharded app's counts were read
+            one = WarpsenseApp(app_params(cfg), in_memory_map=True,
+                               capacity=cfg["capacity"],
+                               window_size=cfg["size"], force_odd=False,
+                               fusion="projective-level", sync_shift=True,
+                               device=device)
+            single = [one.cloud_callback(scan, 0.1 * i)
+                      for i, scan in enumerate(scans)]
+            one.terminate()
+            out["single_poses"] = np.stack(single).tolist()
+            del one
         if world > 1:
             # the sharded fields of the app's map, gathered, against
             # the single-GPU kernel on the gathered window
@@ -2025,9 +2265,11 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
             del st, full
             # the gloo staging on one card: the halo exchange of one
             # padded slab (4 planes through host memory) and one
-            # statistics sum (44 floats), host clock after a sync
+            # iteration's all-gather of the rows (CLUSTER rows of 32
+            # floats a rank, through host memory), host clock after a sync
             halo, stats = [], []
-            flat = torch.ones(44, device=device)
+            _, gather = sh._rows_gather(mesh, torch.ones(
+                (CLUSTER, treg.PARTIALS), device=device))
             for _ in range(7):
                 sync()
                 t0 = time.perf_counter()
@@ -2035,15 +2277,17 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
                 sync()
                 halo.append((time.perf_counter() - t0) * 1e3)
                 t0 = time.perf_counter()
-                sh.sum_in_rank_order(mesh, flat)
+                gather()
+                sync()
                 stats.append((time.perf_counter() - t0) * 1e3)
             out["halo_ms"] = sorted(halo)[3]
-            out["stats_ms"] = sorted(stats)[3]
+            out["rows_gather_ms"] = sorted(stats)[3]
         app.terminate()
         with open(Path(out_dir) / f"sharded_{backend}_{rank}.json",
                   "w") as fh:
             json.dump(out, fh)
     finally:
+        sh.run_registration_sharded = run_loop
         dist.destroy_process_group()
 
 
@@ -2078,10 +2322,74 @@ def _spawn_ranks(world, backend, cfg, out_dir):
     return reps
 
 
+def shard_registration_report(rank: dict, name: str) -> dict:
+    """One rank's ``[registration sharded]`` report: its registrations,
+    their iterations, the sharded loop's kernel launches, header reads
+    and loop time, each per registration, and the synchronizing
+    operations of each registration (sync debug mode)."""
+    la = rank["launches"]
+    n = la["registrations"]
+    rep = dict(rank=rank["rank"], backend=rank["backend"], registrations=n,
+               iterations=la["reg_iterations"],
+               shard_stats_launches=la["shard_stats"],
+               shard_step_launches=la["shard_step"],
+               header_reads=la["reg_syncs"], loop_kernel_launches=la[
+                   "reg_loop"],
+               syncs_by_registration=[r["syncs"] for r in
+                                      rank["registrations"]],
+               syncs_at=rank["syncs_at"],
+               ms_by_registration=[r["ms"] for r in rank["registrations"]],
+               loop_ms_repeated=rank["loop_ms_repeated"],
+               loop_profile=rank.get("loop_profile"))
+    if n:
+        rep.update(iterations_per_registration=rep["iterations"] / n,
+                   header_reads_per_registration=rep["header_reads"] / n,
+                   loop_ms_per_registration=la["reg_seconds"] * 1e3 / n)
+    log(f"[registration {name}]", json.dumps(rep))
+    return rep
+
+
+def check_sharded_rank(rank: dict, rep: dict) -> None:
+    """Every registration of the rank ran the sharded loop's kernels:
+    CHUNK launches of each a header read, no loop kernel; the traced
+    registration repeats the app's last and every step is the plain
+    step's."""
+    import math
+
+    from warpsense_tpu_torch.ops.registration import CHUNK
+    n = rep["registrations"]
+    if not (n > 0 and n == len(rank["registrations"])
+            and rep["shard_stats_launches"] == rep["shard_step_launches"]
+            == CHUNK * rep["header_reads"] and rep["header_reads"] >= n
+            and rep["header_reads"] == sum(
+                math.ceil(r["iterations"] / CHUNK)
+                for r in rank["registrations"])
+            and rep["loop_kernel_launches"] == 0):
+        raise AssertionError(f"rank {rank['rank']} ({rank['backend']}): "
+                             f"the sharded loop's kernels were not "
+                             f"launched CHUNK times a header read: {rep}")
+    t = rank["traced"]
+    if t["steps_differ"] or t["steps_replayed"] != t["iterations"] \
+            or not t["equal_to_app"]:
+        raise AssertionError(f"rank {rank['rank']} ({rank['backend']}): "
+                             f"a traced sharded step differs from the "
+                             f"plain step, or the traced run from the "
+                             f"app's: {t}")
+    if t["stats_bad"] or len(t["stats_valid"]) != t["iterations"]:
+        raise AssertionError(f"rank {rank['rank']} ({rank['backend']}): "
+                             f"the statistics of its slab {t['slab']} "
+                             f"differ from reg_stats_plain's (c equal, H / "
+                             f"g / e within {REGLOOP['k3_rtol']}): {t}")
+
+
 def run_sharded(torch, cfg):
     """ShardedWarpsenseApp over two gloo ranks on the card, then an NCCL
-    group of one rank for ``nccl_scans`` scans."""
+    group of one rank beside the single-GPU app, on APP's scans."""
+    import math
+
     import numpy as np
+
+    from warpsense_tpu_torch.ops.registration import CHUNK
     out_dir = ROOT / "chiprun_out" / "sharded"
     ranks = _spawn_ranks(cfg["world"], cfg["backend"], cfg, out_dir)
     gt, _ = app_scans(cfg)
@@ -2092,23 +2400,44 @@ def run_sharded(torch, cfg):
         ranks=[{k: r[k] for k in (
             "rank", "slab", "launches", "fused_scans", "scan_ms",
             "stage_avg_ms", "peak_bytes", "window_pos", "halo_ms",
-            "stats_ms")} for r in ranks],
-        poses_equal_every_scan=equal, ate_m=ate_m(poses[0], gt),
+            "rows_gather_ms", "traced")} for r in ranks],
+        poses_equal_every_scan=equal,
+        traces_equal=len({r["traced"]["digest"] for r in ranks}) == 1,
+        ate_m=ate_m(poses[0], gt),
         fusion_mismatches=ranks[0]["fusion_mismatches"],
         fusion_weighted_voxels=ranks[0]["fusion_weighted_voxels"],
         fields_mismatches=ranks[0]["fields_mismatches"],
         fields_weighted_voxels=ranks[0]["fields_weighted_voxels"])
     log("[sharded]", json.dumps(rep))
-    nccl = _spawn_ranks(1, "nccl", dict(cfg, scans=cfg["nccl_scans"]),
-                        out_dir)[0]
-    log("[sharded nccl]", json.dumps({k: nccl[k] for k in (
-        "world", "backend", "launches", "fused_scans", "scan_ms", "poses",
-        "peak_bytes")}))
-    if not equal:
-        raise AssertionError("the ranks' poses differ")
-    if not rep["ate_m"] < cfg["ate_bound_m"]:
-        raise AssertionError(f"sharded ATE {rep['ate_m']:.4f} m >= "
-                             f"{cfg['ate_bound_m']} m")
+    reg_reps = [shard_registration_report(r, "sharded") for r in ranks]
+    nccl = _spawn_ranks(1, "nccl", dict(cfg, single_app=True), out_dir)[0]
+    nccl_poses = np.asarray(nccl["poses"], np.float32)
+    nccl_rep = {k: nccl[k] for k in (
+        "world", "backend", "launches", "fused_scans", "scan_ms",
+        "stage_avg_ms", "peak_bytes", "traced")}
+    nccl_rep.update(
+        single_app_equal=bool(np.array_equal(
+            nccl_poses, np.asarray(nccl["single_poses"], np.float32))),
+        ate_m=ate_m(nccl_poses, gt))
+    log("[sharded nccl]", json.dumps(nccl_rep))
+    nccl_reg = shard_registration_report(nccl, "sharded_nccl")
+    if not equal or not rep["traces_equal"]:
+        raise AssertionError("the ranks' poses or traced registrations "
+                             "differ")
+    for r, rr in zip(ranks + [nccl], reg_reps + [nccl_reg]):
+        check_sharded_rank(r, rr)
+    if not nccl_rep["single_app_equal"]:
+        raise AssertionError("the NCCL rank of one is not the single-GPU "
+                             "app's poses")
+    over = [r for r in nccl["registrations"]
+            if r["syncs"] > math.ceil(r["iterations"] / CHUNK)]
+    if over:
+        raise AssertionError(f"an NCCL registration synchronized more than "
+                             f"once a chunk: {over}")
+    for a in (rep["ate_m"], nccl_rep["ate_m"]):
+        if not a < cfg["ate_bound_m"]:
+            raise AssertionError(f"sharded ATE {a:.4f} m >= "
+                                 f"{cfg['ate_bound_m']} m")
     if rep["fusion_mismatches"] or rep["fields_mismatches"]:
         raise AssertionError(f"sharded K1/K2 differ from the single-GPU "
                              f"kernels: {rep}")
@@ -2122,11 +2451,13 @@ def run_sharded(torch, cfg):
                                  f"not launched once per fused scan, or "
                                  f"K2 not launched: {r['launches']}, fused "
                                  f"{r['fused_scans']}")
-    if not np.all(np.isfinite(np.asarray(nccl["poses"]))):
+    if not np.all(np.isfinite(nccl_poses)):
         raise AssertionError("non-finite pose in the NCCL run")
     launches = {k: sum(r["launches"][k] for r in ranks) for k in
                 ranks[0]["launches"]}
-    return dict(rep, launches=launches, nccl_launches=nccl["launches"])
+    return dict(rep, launches=launches, nccl_launches=nccl["launches"],
+                registration=reg_reps, nccl=nccl_rep,
+                nccl_registration=nccl_reg)
 
 
 # ---------------------------------------------------------------- phase 14
@@ -2259,10 +2590,16 @@ def main() -> int:
     plain = regloop["plain"]
     app_loop = loop_times["packed_app"]
 
-    def reg_entry(name, replaces, also, plain_ms, library_ms):
+    shard_app = regloop["shard_times"]["packed_app"]
+
+    def reg_entry(name, replaces, also, plain_ms, library_ms, shard):
         """K3 or K4: both halves of one launch of the loop kernel, so both
-        carry its time per iteration on the fast app's problem."""
+        carry its time per iteration on the fast app's problem; on the
+        sharded paths each is a kernel of its own (``shard``: its launch
+        count's key, its kernel's name), whose device time an iteration on
+        the same problem at a world of one is beside."""
         t = app_loop
+        key, kernel = shard
         return {"name": name, "route": "cuda",
                 "source": "warpsense_tpu_torch/csrc/registration.cu",
                 "launched_as": "loop_kernel", "cluster": CLUSTER,
@@ -2284,7 +2621,16 @@ def main() -> int:
                     t["empty_cluster_device_ms_per_iteration"],
                 "empty_kernel_ms": plain["empty_ms"],
                 "ms_per_registration": t["ms"],
-                "device_ms_per_registration": t["device_ms"]}
+                "device_ms_per_registration": t["device_ms"],
+                "sharded_launched_as": kernel,
+                "sharded_launches_by_path": {
+                    k: paths[k][key] for k in ("sharded", "sharded_nccl")},
+                "sharded_device_us_per_launch": shard_app[
+                    f"{key}_device_us_per_launch"],
+                "sharded_loop": {k: shard_app[k] for k in (
+                    "iterations", "launches", "ms_per_iteration",
+                    "device_ms_per_iteration", "bound_ms_per_iteration",
+                    "bound_by")}}
 
     kernels = [
         {"name": "fusion_K1", "route": "cuda",
@@ -2308,11 +2654,18 @@ def main() -> int:
                        "warpsense_tpu/ops/registration.py:454",
                        ["warpsense_tpu/ops/registration.py:106",
                         "warpsense_tpu/ops/registration.py:512"],
-                       plain["K3_plain_packed_ms"], None),
-             loop=loop_times),
+                       plain["K3_plain_packed_ms"], None,
+                       ("shard_stats", "shard_stats_kernel")),
+             loop=loop_times, shard_loop=regloop["shard_times"],
+             # each SHARDED rank's traced rows on its own slab against
+             # reg_stats_plain on that slab (relative, as max_abs_err)
+             sharded_max_abs_err=max(
+                 r["traced"]["stats_max_rel_err"]
+                 for r in sharded["ranks"] + [sharded["nccl"]])),
         reg_entry("reg_step_K4", "warpsense_tpu/ops/registration.py:572",
                   ["warpsense_tpu/ops/registration.py:212"],
-                  plain["K4_plain_ms"], plain["solve_ex_ms"]),
+                  plain["K4_plain_ms"], plain["solve_ex_ms"],
+                  ("shard_step", "shard_step_kernel")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])

@@ -165,6 +165,130 @@ def run_ops(mesh) -> dict:
     return out
 
 
+LOOP_NAMES = ("packed", "packed_freeze", "exact", "gn_parity", "gn_fast")
+LOOP_CHUNKS = (1, 3, 8)
+# the fast-mode GN's iterations where it is held against JAX's sharded one:
+# from the 8th on, JAX's own single-window and sharded fast GN part
+# (tests/test_torch_sharded_loop.py)
+FAST_GN_ITERATIONS = 5
+
+
+def loop_scenes():
+    """The sharded loop tests' whole windows on the CPU: the flat room
+    fused on the level grid and the box room ray-marched, each with its
+    cloud (int32 mm) as (state, points, mask)."""
+    from warpsense_tpu_torch.ops.tsdf import plan_raymarch, tsdf_update
+    from warpsense_tpu_torch.ops.tsdf_projective import \
+        tsdf_update_projective
+
+    zero = torch.zeros(3, dtype=torch.int32)
+    pts = torch.as_tensor(flat_room_cloud())
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    level = tsdf_update_projective(
+        create_state(SIZE, TAU, 0, force_odd=False), pts, mask, zero,
+        torch.eye(3, dtype=torch.float32), level=True, **PROJ_KW)
+    rpts = torch.as_tensor(raymarch_cloud())
+    rmask = torch.ones(len(rpts), dtype=torch.bool)
+    ms, mi = plan_raymarch(TAU, RES, 4000)
+    ray = tsdf_update(
+        create_state(SIZE, TAU, 0, force_odd=False), rpts, rmask, zero,
+        torch.tensor([0, 0, MATRIX_RESOLUTION], dtype=torch.int32),
+        size=SIZE, tau=TAU, max_weight=32 * WEIGHT_RESOLUTION,
+        resolution=RES, max_steps=ms, max_isteps=mi)
+    return (level, pts, mask), (ray, rpts, rmask)
+
+
+def loop_problems(scenes, rows=None) -> dict:
+    """name -> (RegProblem, pretransform) of the sharded loop tests on
+    ``loop_scenes()``, on the window's rows ``rows`` = (lo, hi) (the whole
+    window by default):
+    the LM over packed fields without and with the gather freeze and over
+    exact fields (PACKED_REG_KW), the GN in its parity and fast modes
+    (PARITY_REG_KW); the fields are the whole window's, cut to the rows
+    (the sharded fields' bits: tests/test_torch_sharded.py)."""
+    from warpsense_tpu_torch.ops import registration as treg
+    (level, pts, mask), (ray, rpts, rmask) = scenes
+    lo, hi = rows or (0, SIZE[0])
+
+    def cut(fields):
+        return type(fields)(*(p[lo:hi].contiguous() for p in fields))
+
+    lm = dict(pos=level.pos, offset=level.offset, points=pts, mask=mask,
+              size=SIZE, resolution=RES, tau=TAU, interp=True,
+              normalize=False, lm=True, recenter=True, coarse_iterations=0,
+              max_iterations=PACKED_REG_KW["max_iterations"],
+              epsilon=PACKED_REG_KW["epsilon"], it_weight_gradient=0.0,
+              freeze_step_mm=float(RES), x_lo=lo, x_rows=hi - lo)
+    packed = cut(treg.precompute_fields_packed(level, tau=TAU))
+    out = {"packed": (treg.RegProblem(fields=packed,
+                                      layout=treg.LAYOUT_PACKED,
+                                      split=False, **lm), PERT),
+           "packed_freeze": (treg.RegProblem(fields=packed,
+                                             layout=treg.LAYOUT_PACKED,
+                                             split=True, **lm), PERT_FREEZE),
+           "exact": (treg.RegProblem(
+               fields=cut(treg.precompute_fields_packed2(level)),
+               layout=treg.LAYOUT_EXACT, split=False, **lm), PERT)}
+    parity = cut(treg.precompute_fields(ray))
+    for mode in ("parity", "fast"):
+        out["gn_" + mode] = (treg.RegProblem(
+            fields=parity, pos=ray.pos, offset=ray.offset, points=rpts,
+            mask=rmask, size=SIZE, resolution=RES, tau=TAU,
+            layout=treg.LAYOUT_PARITY, interp=False,
+            normalize=mode == "fast", lm=False, recenter=mode == "fast",
+            coarse_iterations=0, split=False,
+            max_iterations=PARITY_REG_KW["max_iterations"],
+            epsilon=PARITY_REG_KW["epsilon"],
+            it_weight_gradient=PARITY_REG_KW["it_weight_gradient"],
+            freeze_step_mm=0.0, x_lo=lo, x_rows=hi - lo), PERT)
+    return {k: (prob, torch.as_tensor(pose)) for k, (prob, pose)
+            in out.items()}
+
+
+def run_loop(mesh) -> dict:
+    """The sharded loops on this rank: every ``loop_problems`` registration
+    on the rank's slab through ``run_registration_sharded`` at each of
+    LOOP_CHUNKS, traced (end state, header, trace), and the public entry
+    points from the rank's sharded map (pose, and the LM's iterations)."""
+    from warpsense_tpu_torch.ops import registration as treg
+    from warpsense_tpu_torch.parallel import sharded as sh
+
+    out = {}
+    scenes = loop_scenes()
+    for name, (prob, pose) in loop_problems(
+            scenes, sh.slab_rows(mesh, SIZE[0])).items():
+        for chunk in LOOP_CHUNKS:
+            trace = torch.zeros((prob.max_iterations,
+                                 treg.trace_width(mesh.world)))
+            st, head = sh.run_registration_sharded(prob, pose, mesh,
+                                                   chunk=chunk, trace=trace)
+            out[f"{name}_state_{chunk}"] = st.numpy()
+            out[f"{name}_head_{chunk}"] = np.asarray(head)
+            out[f"{name}_trace_{chunk}"] = trace.numpy()
+    (level, pts, mask), (ray, rpts, rmask) = scenes
+    kw = dict(PACKED_REG_KW)
+    for name, exact, freeze, pose in (("packed", False, False, PERT),
+                                      ("packed_freeze", False, True,
+                                       PERT_FREEZE),
+                                      ("exact", True, False, PERT)):
+        slab = sh.shard_state(level, mesh)
+        f = sh.precompute_fields_packed_sharded(slab, mesh=mesh, tau=TAU,
+                                                exact=exact)
+        got, iters, _ = sh.register_cloud_packed_sharded(
+            f, slab.pos, slab.offset, pts, mask, torch.as_tensor(pose),
+            mesh=mesh, gather_freeze=freeze, **kw)
+        out[f"{name}_pose"], out[f"{name}_iters"] = got.numpy(), iters
+    for mode in ("parity", "fast"):
+        out[f"gn_{mode}_pose"] = sh.register_cloud_sharded(
+            sh.shard_state(ray, mesh), rpts, rmask, torch.as_tensor(PERT),
+            mesh=mesh, mode=mode, **PARITY_REG_KW).numpy()
+    out["gn_fast_early_pose"] = sh.register_cloud_sharded(
+        sh.shard_state(ray, mesh), rpts, rmask, torch.as_tensor(PERT),
+        mesh=mesh, mode="fast", **dict(
+            PARITY_REG_KW, max_iterations=FAST_GN_ITERATIONS)).numpy()
+    return out
+
+
 WINDOW = (160, 101, 41)       # tests/test_sharded_app.py's window
 APP_CH, APP_COLS = 32, 512
 

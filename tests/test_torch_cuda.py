@@ -769,3 +769,185 @@ def test_loop_kernel_places_its_cluster(reg_problems):
     # the last iteration's rows hold 9 + column in every CTA
     assert torch.equal(out, kreg.CLUSTER * (9.0 + torch.arange(
         32, device=out.device, dtype=torch.float32)))
+
+
+# ------------------------- registration: the sharded loop (K3 and K4 apart)
+# The same problems cut into x-slabs of the window, as the ranks of a mesh
+# hold them (``RegProblem.x_lo``, ``x_rows``; the fields are the slab's
+# rows).  A world is simulated in one process: each rank's statistics
+# (``shard_stats_kernel``) write their rows into its rank's place of one
+# (world * 16, 32) buffer, then every rank steps on it
+# (``shard_step_kernel``).  Tolerances: each rank's rows, summed, against
+# ``reg_stats_plain`` on its slab as REGLOOP's (relative 1e-5, c exact); a
+# world of one is the loop kernel's registration to the bit; every rank's
+# carry the same bits; every traced step the plain step's bits.
+
+def _slab(prob, lo, hi):
+    """``prob`` on the window's rows [lo, hi): the fields' rows, owned."""
+    return prob._replace(fields=type(prob.fields)(*(p[lo:hi]
+                                                    for p in prob.fields)),
+                         x_lo=lo, x_rows=hi - lo)
+
+
+def _simulated_world(prob, pose, world, traced=True):
+    """One registration of ``prob`` over ``world`` simulated ranks (slabs
+    [r X / world, (r + 1) X / world)): (each rank's end state, each
+    rank's trace, each rank's slab problem)."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    X = prob.size[0]
+    k = kreg.CLUSTER
+    rows_all = torch.zeros((world * k, treg.PARTIALS), device=pose.device)
+    ranks = []
+    for r in range(world):
+        sp = _slab(prob, r * X // world, (r + 1) * X // world)
+        st = treg.init_state(sp, pose, pose.device)
+        trace = torch.zeros((prob.max_iterations, treg.trace_width(world * k)),
+                            device=pose.device) if traced else None
+        ranks.append((st, trace, sp, kreg.shard_plan(
+            st, sp, rows_all[r * k:(r + 1) * k], rows_all, trace=trace)))
+    while not treg.stopped(ranks[0][0], prob):
+        for _ in range(treg.CHUNK):
+            for *_, plan in ranks:
+                kreg.shard_stats(plan)
+            for *_, plan in ranks:
+                kreg.shard_step(plan)
+    torch.cuda.synchronize()
+    return ([r[0] for r in ranks], [r[1] for r in ranks],
+            [r[2] for r in ranks])
+
+
+def _check_rank_stats(trace, n, slabs):
+    """Each traced iteration's rows of each rank, summed in the step's
+    order, against ``reg_stats_plain`` on its slab at the traced carry
+    (each rank's cache gathered where the loop's was): c equal, H / g / e
+    within 1e-5 relative.  Returns the modes run."""
+    from warpsense_tpu_torch.kernels.registration import CLUSTER
+    host = trace[:n].cpu()
+    caches = [{} for _ in slabs]
+    modes = set()
+    for i in range(n):
+        carry = trace[i, :treg.STATE_LEN].clone()
+        prob = slabs[0]
+        if prob.lm and i < prob.coarse_iterations:
+            modes.add("coarse")
+        elif prob.split:
+            modes.add("cached" if bool(host[i, treg.S_FROZEN]) else "gather")
+        else:
+            modes.add("full")
+        rows = host[i, treg.STATE_LEN:].reshape(-1, treg.PARTIALS)
+        for r, (sp, cache) in enumerate(zip(slabs, caches)):
+            got = treg.sum_partials(rows[r * CLUSTER:(r + 1) * CLUSTER])
+            want = treg.reg_stats_plain(carry, sp, cache)[0].cpu()
+            assert got[28] == want[28], (i, r, float(got[28]),
+                                         float(want[28]))
+            for lo, hi in ((0, 21), (21, 27), (27, 28)):
+                d = (got[lo:hi].double() - want[lo:hi].double()).abs().max()
+                assert d <= 1e-5 * max(float(want[lo:hi].abs().max()),
+                                       1e-30), (i, r, lo)
+    return modes
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_shard_stats_matches_plain_on_each_slab(reg_problems, name, world):
+    """``shard_stats_kernel`` on each rank's slab against the plain
+    statistics on that slab, in every mode the layout runs; a second run
+    traces the same bits."""
+    pose, probs = reg_problems
+    runs = [(_full(probs[name]), pose)]
+    if name != "parity":
+        runs.append((probs[name], _reg_pose(*FREEZE_POSE).to(pose.device)))
+    modes = set()
+    for prob, start in runs:
+        states, traces, slabs = _simulated_world(prob, start, world)
+        again, traces2, _ = _simulated_world(prob, start, world)
+        assert torch.equal(states[0], again[0])
+        assert torch.equal(traces[0], traces2[0])
+        modes |= _check_rank_stats(traces[0], int(states[0][treg.S_I]),
+                                   slabs)
+    assert modes == ({"full"} if name == "parity"
+                     else {"full", "coarse", "gather", "cached"}), modes
+
+
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_sharded_loop_at_a_world_of_one_is_the_loop_kernel(reg_problems,
+                                                           name):
+    """``run_registration_sharded`` without a group: the loop kernel's
+    registration to the bit (end state, header, every traced carry and
+    row), its kernels launched once an iteration of each chunk, the header
+    read once a chunk."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    pose, probs = reg_problems
+    for prob, start in ((probs[name], pose),
+                        (probs[name], _reg_pose(*FREEZE_POSE).to(
+                            pose.device))):
+        st, trace = _traced(prob, start)
+        strace = torch.zeros_like(trace)
+        counts = (kreg.shard_stats.launches, kreg.shard_step.launches,
+                  treg.run_registration.syncs)
+        got, head = run_registration_sharded(prob, start, make_mesh("cuda"),
+                                             trace=strace)
+        n = int(head[treg.S_I])
+        reads = -(-n // treg.CHUNK)
+        assert (kreg.shard_stats.launches - counts[0],
+                kreg.shard_step.launches - counts[1],
+                treg.run_registration.syncs - counts[2]) == (
+            reads * treg.CHUNK, reads * treg.CHUNK, reads)
+        assert torch.equal(got, st) and head == st[:treg.S_HEAD].tolist()
+        assert torch.equal(strace, trace)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["packed", "exact", "parity"])
+def test_sharded_steps_are_the_plain_step_on_every_rank(reg_problems, name,
+                                                        world):
+    """Every simulated rank ends on the same carry and traces the same
+    bits; every traced step, replayed by ``reg_step_plain`` on the world's
+    rows, gives the next traced carry to the bit; the pose within 0.5 mm
+    and 1e-4 rad of the loop kernel's on the whole window."""
+    pose, probs = reg_problems
+    prob = probs[name]
+    states, traces, _ = _simulated_world(prob, pose, world)
+    for st, tr in zip(states[1:], traces[1:]):
+        assert torch.equal(st, states[0]) and torch.equal(tr, traces[0])
+    _, differ, tests, err = treg.replay_trace(traces[0], states[0], prob)
+    assert differ == [] and err == 0.0 and len(tests) > 2
+    at = treg.S_ACC if prob.lm else treg.S_TRIAL
+    whole, _ = _traced(prob, pose)
+    a = states[0][at:at + 16].reshape(4, 4).cpu().double()
+    b = whole[at:at + 16].reshape(4, 4).cpu().double()
+    assert (a[:3, 3] - b[:3, 3]).abs().max() < 0.5
+    assert (a[:3, :3].T @ b[:3, :3] - torch.eye(3, dtype=torch.float64)
+            ).abs().max() < 1e-4
+
+
+def test_sharded_kernels_raise_on_a_failed_launch(reg_problems, monkeypatch):
+    """A plan the library refuses (an unknown layout) and a launch that
+    fails raise; nothing falls back to the plain versions and the launch
+    counts stay."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    pose, probs = reg_problems
+    prob = probs["packed"]
+    st = treg.init_state(prob, pose, pose.device)
+    rows = torch.zeros((kreg.CLUSTER, treg.PARTIALS), device=pose.device)
+    with pytest.raises(RuntimeError, match="plan"):
+        kreg.shard_plan(st, prob._replace(layout=7), rows, rows)
+    lib = kreg._lib()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ws_reg_shard_stats(plan):
+            return 700          # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(kreg, "_lib", lambda: Failing())
+    launches = (kreg.shard_stats.launches, kreg.shard_step.launches)
+    with pytest.raises(RuntimeError, match="sharded statistics"):
+        run_registration_sharded(prob, pose, make_mesh("cuda"))
+    assert (kreg.shard_stats.launches, kreg.shard_step.launches) == launches

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels K1 and K2, and the registration loop kernel, of two or more
-checkouts of warpsense_tpu_torch on one GPU.
+checkouts of warpsense_tpu_torch on one GPU, or run their SHARDED phases.
 
-    python3 tools/kernel_ab.py [--kernels k1,k2,loop] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--kernels k1,k2,loop | sharded] ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``warpsense_tpu_torch`` package (a
 checkout of another commit, unpacked with ``git archive``, or ``.``).  Every
@@ -21,7 +21,12 @@ checks and the timing are chip_smoke.py's (this checkout's):
 * loop: the registration loop kernel (a checkout that has it) on
   chip_smoke's REGLOOP problems (``time_loops``): its device time an
   iteration on the whole cloud and on every 1,024th point, and one
-  registration between events.
+  registration between events;
+* sharded (alone): the ROOT's own SHARDED phase, its
+  ``chip_smoke.run_sharded`` after its ``build_kernels()`` (two gloo ranks
+  on the card, then its NCCL rank of one, with that checkout's app, loop
+  and checks): every gloo rank's spans (``stage_avg_ms``), scan times and
+  registration loop report, where the checkout makes one.
 
 The first line is the card's name and power limit as nvidia-smi gives them.
 """
@@ -34,10 +39,25 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KERNELS = ("k1", "k2", "loop")
+KERNELS = ("k1", "k2", "loop", "sharded")
+
+
+def sharded_root(root: str) -> dict:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import chip_smoke as cs           # ROOT's: its ranks import it by name
+    import torch
+    cs.build_kernels()
+    rep = cs.run_sharded(torch, cs.SHARDED)
+    loops = rep.get("registration") or [None] * len(rep["ranks"])
+    return {"root": root, "ranks": [
+        dict(rank=r["rank"], stage_avg_ms=r["stage_avg_ms"],
+             scan_ms=r["scan_ms"], **({"loop": loop} if loop else {}))
+        for r, loop in zip(rep["ranks"], loops)]}
 
 
 def time_root(root: str, kernels) -> dict:
+    if kernels == ["sharded"]:
+        return sharded_root(root)
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs           # this checkout's, whatever ROOT holds
     # the package comes from ROOT: chip_smoke imports it inside its functions
@@ -82,13 +102,16 @@ def time_root(root: str, kernels) -> dict:
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="k1,k2",
-                    help="comma-separated subset of k1,k2,loop")
+                    help="comma-separated subset of k1,k2,loop, or "
+                    "sharded alone")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args(argv[1:])
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(KERNELS):
         ap.error(f"--kernels takes a subset of {','.join(KERNELS)}")
+    if "sharded" in kernels and len(kernels) > 1:
+        ap.error("--kernels sharded runs alone")
     if args.one:
         print(json.dumps(time_root(args.roots[0], kernels)), flush=True)
         return 0

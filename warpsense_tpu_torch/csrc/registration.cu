@@ -65,6 +65,25 @@
 // before the step and the C rows it summed into row i of a (max_it,
 // STATE_LEN + C * 32) float32 buffer (the checks replay the steps from it).
 //
+// The sharded loop (parallel/sharded.run_registration_sharded) takes the
+// place of the JAX package's loops under shard_map
+// (warpsense_tpu/parallel/sharded.py: register_cloud_sharded :145, whose
+// statistics are psum-ed :134, and register_cloud_packed_sharded :397, one
+// fused psum an iteration :439).  Each rank owns an x-slab of the window's
+// ring rows [x_lo, x_lo + x_rows); a point whose cell another rank owns
+// adds nothing.  An iteration there is two launches with the ranks' rows
+// all-gathered between them on the stream (NCCL), because a kernel that
+// waited inside itself for another process's rows could deadlock on a card
+// that time-slices the ranks' kernels:
+//   shard_stats_kernel  K3 of one rank: the loop kernel's C CTAs and point
+//       plan without the cluster, each CTA's row into a (C, 32) buffer;
+//   shard_step_kernel   K4 on one warp: the world * C gathered rows summed
+//       in sum_partials' order (rank-major, so every rank steps on the same
+//       bits), the same step(); its trace row i is the carry before step i
+//       and the world * C rows.
+// Both read the carry from device memory and return at once on a finished
+// one, so the host enqueues CHUNK iterations between two header reads.
+//
 // Two macros are for tools/loop_phases.py alone, which builds a copy of
 // this file with them: WS_REG_CLUSTER (C, 16 by default) and
 // WS_LOOP_PHASES (CTA 0's thread 0 stamps each iteration's phases with
@@ -97,6 +116,7 @@ constexpr int kStateLen = 96;   // ops/registration.STATE_LEN
 #define WS_REG_CLUSTER 16
 #endif
 constexpr int kCluster = WS_REG_CLUSTER;
+static_assert(kCluster % kLanes == 0, "add_rows adds whole lanes");
 constexpr int kMR = 32768;      // core/consts.MATRIX_RESOLUTION
 
 // state layout: ops/registration.py S_*
@@ -133,6 +153,13 @@ struct LoopArgs {
   float eps, itw, freeze2;
   int res_shift;    // log2(res) when res is a power of two, else -1
   float inv_res;    // 1 / res, exact when res_shift >= 0
+};
+
+// a rank's slab: its ring rows [x_lo, x_lo + x_rows) of the window, the
+// rows its planes hold (shard_stats_kernel alone takes one, so that the
+// loop kernel's arguments stay as they were)
+struct Slab {
+  int x_lo, x_rows;
 };
 
 // C-trunc division by MATRIX_RESOLUTION as core.geometry.div_trunc writes
@@ -184,9 +211,16 @@ __device__ __forceinline__ float div_res(const LoopArgs& a, float x) {
 
 // the point's window cell: floor division (an arithmetic shift for a power
 // of two), in_bounds(buffer 1), ring coords (the modulo only off the
-// window's first turn of the ring)
-__device__ __forceinline__ bool cell(const LoopArgs& a, const int pts[3],
-                                     int buf[3], long long* flat) {
+// window's first turn of the ring) over the whole window; with S then
+// ownership: a cell outside the rank's ``slab`` is not valid
+// (ops/registration.owned_index_fn's rule), and ``flat`` indexes the
+// slab's planes.  The loop kernel, which runs the whole window, is built
+// without S and never reads ``slab``: the compare cost it measurable time
+// (PERF.md section 6)
+template <bool S>
+__device__ __forceinline__ bool cell(const LoopArgs& a, Slab slab,
+                                     const int pts[3], int buf[3],
+                                     long long* flat) {
   const int sz[3] = {a.X, a.Y, a.Z};
   bool ok = true;
   int r[3];
@@ -199,7 +233,12 @@ __device__ __forceinline__ bool cell(const LoopArgs& a, const int pts[3],
     r[k] = d + a.offset[k];
     if ((unsigned)r[k] >= (unsigned)sz[k]) r[k] = py_mod(r[k], sz[k]);
   }
-  *flat = ((long long)r[0] * a.Y + r[1]) * a.Z + r[2];
+  int x = r[0];
+  if (S) {
+    x -= slab.x_lo;
+    ok = ok && (unsigned)x < (unsigned)slab.x_rows;
+  }
+  *flat = ((long long)x * a.Y + r[1]) * a.Z + r[2];
   return ok;
 }
 
@@ -278,8 +317,8 @@ __device__ __forceinline__ void fast_terms(const LoopArgs& a,
   accumulate(acc, J, r);
 }
 
-template <int L, int M>
-__device__ void point_stats(const LoopArgs& a, const float* T,
+template <int L, int M, bool S>
+__device__ void point_stats(const LoopArgs& a, Slab slab, const float* T,
                             const int m[12], int idx, float acc[kSums]) {
   int pts[3];
   transform(a.points + 3 * (long long)idx, m, pts);
@@ -295,7 +334,7 @@ __device__ void point_stats(const LoopArgs& a, const float* T,
   int buf[3];
   long long flat;
   int v = 0, g[3] = {0, 0, 0};
-  bool ok = a.mask[idx] != 0 && cell(a, pts, buf, &flat);
+  bool ok = a.mask[idx] != 0 && cell<S>(a, slab, pts, buf, &flat);
   if (ok) ok = gather<L>(a, flat, &v, g);
   if (L == kParity) {
     if (!ok) return;
@@ -339,16 +378,92 @@ __device__ void point_stats(const LoopArgs& a, const float* T,
 // this thread's points (kernels/registration.thread_points is the plan's
 // plain model): global thread g of the cluster's kCluster * kThreads
 // takes the strided points g, g + kCluster * kThreads, ... in order
-template <int L, int M>
-__device__ void thread_points(const LoopArgs& a, const float* T,
+template <int L, int M, bool S>
+__device__ void thread_points(const LoopArgs& a, Slab slab, const float* T,
                               const int m[12], int g, float acc[kSums]) {
   const int stride = M == kCoarse ? 4 : 1;
   const int count = (a.n + stride - 1) / stride;
   for (int j = g; j < count; j += kCluster * kThreads)
-    point_stats<L, M>(a, T, m, j * stride, acc);
+    point_stats<L, M, S>(a, slab, T, m, j * stride, acc);
+}
+
+// The sharded K3's parts (shard_stats_kernel): the loop kernel's K3 with
+// the same operations in the same order, which the loop kernel writes out
+// in its body (called through these helpers, its SASS moved and its
+// packed REGLOOP problem ran ~2% slower: PERF.md section 6).
+
+// the iteration's statistics mode, read from the carry: JAX's reuse /
+// coarse_now decision
+template <int L>
+__device__ __forceinline__ int iteration_mode(const float* s,
+                                              const LoopArgs& a, int i) {
+  if (L == kParity) return kFull;
+  if (a.coarse > 0 && i < a.coarse) return kCoarse;
+  if (a.split) return s[S_FROZEN] != 0.0f ? kCached : kGather;
+  return kFull;
+}
+
+// K3 of global thread g at the carry's trial pose: its points' sums (S:
+// on a rank's slab)
+template <int L, bool S>
+__device__ __forceinline__ void thread_stats(const LoopArgs& a, Slab slab,
+                                             const float* s, int mode, int g,
+                                             float acc[kSums]) {
+  const float* T = s + S_TRIAL;
+  int m[12];
+  int_mat(T, m);
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  switch (mode) {
+    case kCoarse: thread_points<L, kCoarse, S>(a, slab, T, m, g, acc); break;
+    case kGather: thread_points<L, kGather, S>(a, slab, T, m, g, acc); break;
+    case kCached: thread_points<L, kCached, S>(a, slab, T, m, g, acc); break;
+    default: thread_points<L, kFull, S>(a, slab, T, m, g, acc); break;
+  }
+}
+
+// the CTA's row of sums: a warp shuffle tree, then the warps in order (a
+// fixed order of additions); every thread of the CTA calls it; thread t <
+// kPartials gets column t (0 past kSums)
+__device__ __forceinline__ float cta_row(const float acc[kSums],
+                                         float (*red)[kPartials], int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    float x = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) red[warp][k] = x;
+  }
+  __syncthreads();
+  float t = 0.0f;
+  if (tid < kSums) {
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) t += red[v][tid];
+  }
+  return t;
 }
 
 // ------------------------------------------------------------------ K4
+
+// The rows of statistics are summed in ops/registration.sum_partials'
+// order: kLanes interleaved lanes (rows l, l + kLanes, ...) each in row
+// order, then the lanes in order.  A lane of the warp sums one column; the
+// rows arrive kCluster at a time (``x``, read into registers first so the
+// reads overlap), each block added into the lanes' sums ``t`` in row order.
+__device__ __forceinline__ void add_rows(const float x[kCluster],
+                                         float t[kLanes]) {
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r) t[r % kLanes] = t[r % kLanes] + x[r];
+}
+
+__device__ __forceinline__ float lanes_total(const float t[kLanes]) {
+  float total = 0.0f;
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) total = total + t[l];
+  return total;
+}
 
 // the step's arrays in shared memory (warp 0 of each CTA works on them):
 // the summed statistics, the step xi and the transform it gives
@@ -643,7 +758,8 @@ loop_kernel(LoopArgs a) {
       else if (a.split)
         mode = s[S_FROZEN] != 0.0f ? kCached : kGather;
     }
-    // K3: this CTA's row of sums at the trial pose
+    // K3: this CTA's row of sums at the trial pose (shard_stats_kernel's
+    // helpers, written out)
     const float* T = s + S_TRIAL;
     int m[12];
     int_mat(T, m);
@@ -651,11 +767,15 @@ loop_kernel(LoopArgs a) {
 #pragma unroll
     for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
     const int gt = rank * kThreads + tid;
+    const Slab all{0, a.X};   // not read: without S every row is owned
     switch (mode) {
-      case kCoarse: thread_points<L, kCoarse>(a, T, m, gt, acc); break;
-      case kGather: thread_points<L, kGather>(a, T, m, gt, acc); break;
-      case kCached: thread_points<L, kCached>(a, T, m, gt, acc); break;
-      default: thread_points<L, kFull>(a, T, m, gt, acc); break;
+      case kCoarse:
+        thread_points<L, kCoarse, false>(a, all, T, m, gt, acc); break;
+      case kGather:
+        thread_points<L, kGather, false>(a, all, T, m, gt, acc); break;
+      case kCached:
+        thread_points<L, kCached, false>(a, all, T, m, gt, acc); break;
+      default: thread_points<L, kFull, false>(a, all, T, m, gt, acc); break;
     }
     PHASE(t1);
     // warp tree, then the warps in order: a fixed order of additions
@@ -691,21 +811,15 @@ loop_kernel(LoopArgs a) {
       float x[kCluster];
 #pragma unroll
       for (int r = 0; r < kCluster; ++r) x[r] = rows[i & 1][r][lane];
-      float total = 0.0f;
-#pragma unroll
-      for (int l = 0; l < kLanes; ++l) {
-        float t = 0.0f;
-#pragma unroll
-        for (int r = l; r < kCluster; r += kLanes) t = t + x[r];
-        total = total + t;
-      }
+      float t[kLanes] = {};
+      add_rows(x, t);
       if (a.trace != nullptr && rank == 0) {
 #pragma unroll
         for (int r = 0; r < kCluster; ++r)
           a.trace[(long long)i * width + kStateLen + r * kPartials + lane]
               = x[r];
       }
-      w.sum[lane] = total;
+      w.sum[lane] = lanes_total(t);
       __syncwarp();
       PHASE(t4);
       step(s, w, a, lane);
@@ -728,6 +842,81 @@ loop_kernel(LoopArgs a) {
   cluster.sync();        // no CTA leaves while a peer still stores into it
   if (rank == 0 && tid < kStateLen) a.state[tid] = s[tid];
 }
+
+// ------------------------------------------------- the sharded loop's K3
+
+// K3 of one rank for one iteration: the loop kernel's kCluster CTAs and
+// point plan (global thread g = CTA * kThreads + thread), without the
+// cluster; CTA b writes its row into rows[b] (kPartials floats, zeros past
+// kSums).  Nothing on a finished carry.
+template <int L>
+__global__ void __launch_bounds__(kThreads, 1)
+shard_stats_kernel(LoopArgs a, Slab slab, float* rows) {
+  const int tid = threadIdx.x;
+  __shared__ float s[kStateLen];
+  __shared__ float red[kWarps][kPartials];
+  if (tid < kStateLen) s[tid] = a.state[tid];
+  __syncthreads();
+  const int i = (int)s[S_I];
+  if (s[S_FIN] != 0.0f || i >= a.max_it) return;
+  float acc[kSums];
+  thread_stats<L, true>(a, slab, s, iteration_mode<L>(s, a, i),
+                        (int)blockIdx.x * kThreads + tid, acc);
+  const float t = cta_row(acc, red, tid);
+  if (tid < kPartials) rows[blockIdx.x * kPartials + tid] = t;
+}
+
+// ------------------------------------------------- the sharded loop's K4
+
+// one step on one warp from ``n`` gathered rows (rank-major): their sum in
+// sum_partials' order, then step() on the carry, written back.  With a
+// trace, row i (kStateLen + n * kPartials floats) gets the carry before
+// the step and the rows.  Nothing on a finished carry.
+__global__ void __launch_bounds__(32, 1)
+shard_step_kernel(LoopArgs a, const float* rows, int n) {
+  const int lane = threadIdx.x;
+  __shared__ float s[kStateLen];
+  __shared__ StepScratch w;
+  for (int k = lane; k < kStateLen; k += 32) s[k] = a.state[k];
+  __syncwarp();
+  const int i = (int)s[S_I];
+  if (s[S_FIN] != 0.0f || i >= a.max_it) return;
+  float* row = a.trace == nullptr ? nullptr
+      : a.trace + (long long)i * (kStateLen + n * kPartials);
+  if (row != nullptr) {
+    for (int k = lane; k < kStateLen; k += 32) row[k] = s[k];
+  }
+  float t[kLanes] = {};
+  for (int b = 0; b < n; b += kCluster) {
+    float x[kCluster];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      x[r] = rows[(b + r) * kPartials + lane];
+    add_rows(x, t);
+    if (row != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r)
+        row[kStateLen + (b + r) * kPartials + lane] = x[r];
+    }
+  }
+  w.sum[lane] = lanes_total(t);
+  __syncwarp();
+  step(s, w, a, lane);
+  __syncwarp();
+  for (int k = lane; k < kStateLen; k += 32) a.state[k] = s[k];
+}
+
+// what the two launches of a sharded iteration read, built once a
+// registration (kernels/registration.shard_plan)
+struct ShardPlan {
+  LoopArgs a;
+  Slab slab;
+  float* rows;            // this rank's kCluster rows (shard_stats_kernel)
+  const float* rows_all;  // the world's rows, rank-major (shard_step_kernel)
+  int nrows;              // world * kCluster
+  int layout;
+  cudaStream_t stream;
+};
 
 // the design's floor: the same cluster doing only each iteration's row
 // stores into every CTA (distributed shared memory), cluster.sync() and
@@ -814,20 +1003,15 @@ int max_clusters() {
 
 }  // namespace
 
-extern "C" {
-
-// the CTAs of the loop kernel's cluster (kernels/registration.CLUSTER)
-int ws_reg_cluster() { return kCluster; }
-
 // iparams: n, X, Y, Z, res, layout, vs, gs, interp, normalize, coarse,
-// split, max_it, lm, recenter; fparams: eps, itw, freeze2 (host memory,
-// read at the call).  ``trace``: null, or (max_it, 96 + kCluster * 32)
-// float32.
-int ws_reg_loop(float* state, const int* points, const unsigned char* mask,
-                const int* plane0, const int* plane1, const int* plane2,
-                const int* pos, const int* offset, unsigned char* c_valid,
-                float* c_v, float* c_g, int* c_cc, float* trace,
-                const int* iparams, const float* fparams, void* stream) {
+// split, max_it, lm, recenter; fparams: eps, itw, freeze2
+static LoopArgs loop_args(float* state, const int* points,
+                          const unsigned char* mask, const int* plane0,
+                          const int* plane1, const int* plane2,
+                          const int* pos, const int* offset,
+                          unsigned char* c_valid, float* c_v, float* c_g,
+                          int* c_cc, float* trace, const int* iparams,
+                          const float* fparams) {
   LoopArgs a{state, points, mask, plane0, plane1, plane2, pos, offset,
              c_valid, c_v, c_g, c_cc, trace,
              iparams[0], iparams[1], iparams[2], iparams[3], iparams[4],
@@ -838,6 +1022,24 @@ int ws_reg_loop(float* state, const int* points, const unsigned char* mask,
     a.res_shift = __builtin_ctz((unsigned)a.res);
     a.inv_res = 1.0f / (float)a.res;
   }
+  return a;
+}
+
+extern "C" {
+
+// the CTAs of the loop kernel's cluster (kernels/registration.CLUSTER)
+int ws_reg_cluster() { return kCluster; }
+
+// iparams and fparams as loop_args takes them (host memory, read at the
+// call).  ``trace``: null, or (max_it, 96 + kCluster * 32) float32.
+int ws_reg_loop(float* state, const int* points, const unsigned char* mask,
+                const int* plane0, const int* plane1, const int* plane2,
+                const int* pos, const int* offset, unsigned char* c_valid,
+                float* c_v, float* c_g, int* c_cc, float* trace,
+                const int* iparams, const float* fparams, void* stream) {
+  const LoopArgs a = loop_args(state, points, mask, plane0, plane1, plane2,
+                               pos, offset, c_valid, c_v, c_g, c_cc, trace,
+                               iparams, fparams);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (iparams[5]) {
@@ -868,6 +1070,64 @@ int ws_reg_cluster_empty(float* out, int iterations, void* stream) {
   const cudaError_t rc = cudaLaunchKernelEx(&cfg, empty_cluster_loop, out,
                                             iterations);
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// the bytes of a sharded registration's plan
+int ws_reg_shard_plan_size() { return (int)sizeof(ShardPlan); }
+
+// fill ``plan`` (ws_reg_shard_plan_size() bytes of host memory): the loop's
+// arguments as ws_reg_loop takes them, with the rank's slab after them
+// (iparams[15] x_lo, iparams[16] x_rows), this rank's (kCluster, 32) rows,
+// the (nrows, 32) gathered rows and the stream both kernels launch on.
+// ``trace``: null, or (max_it, 96 + nrows * 32) float32.
+int ws_reg_shard_plan(void* plan, float* state, const int* points,
+                      const unsigned char* mask, const int* plane0,
+                      const int* plane1, const int* plane2, const int* pos,
+                      const int* offset, unsigned char* c_valid, float* c_v,
+                      float* c_g, int* c_cc, float* trace, float* rows,
+                      const float* rows_all, int nrows, const int* iparams,
+                      const float* fparams, void* stream) {
+  if (iparams[5] < kParity || iparams[5] > kExact || nrows < 1
+      || nrows % kCluster != 0)
+    return (int)cudaErrorInvalidValue;
+  ShardPlan* p = static_cast<ShardPlan*>(plan);
+  p->a = loop_args(state, points, mask, plane0, plane1, plane2, pos, offset,
+                   c_valid, c_v, c_g, c_cc, trace, iparams, fparams);
+  p->slab = Slab{iparams[15], iparams[16]};
+  p->rows = rows;
+  p->rows_all = rows_all;
+  p->nrows = nrows;
+  p->layout = iparams[5];
+  p->stream = static_cast<cudaStream_t>(stream);
+  return 0;
+}
+
+// one launch of shard_stats_kernel: this rank's rows of one iteration
+int ws_reg_shard_stats(const void* plan) {
+  const ShardPlan* p = static_cast<const ShardPlan*>(plan);
+  switch (p->layout) {
+    case kParity:
+      shard_stats_kernel<kParity><<<kCluster, kThreads, 0, p->stream>>>(
+          p->a, p->slab, p->rows);
+      break;
+    case kPacked:
+      shard_stats_kernel<kPacked><<<kCluster, kThreads, 0, p->stream>>>(
+          p->a, p->slab, p->rows);
+      break;
+    case kExact:
+      shard_stats_kernel<kExact><<<kCluster, kThreads, 0, p->stream>>>(
+          p->a, p->slab, p->rows);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// one launch of shard_step_kernel: the step on the gathered rows
+int ws_reg_shard_step(const void* plan) {
+  const ShardPlan* p = static_cast<const ShardPlan*>(plan);
+  shard_step_kernel<<<1, 32, 0, p->stream>>>(p->a, p->rows_all, p->nrows);
+  return (int)cudaGetLastError();
 }
 
 int ws_reg_empty(void* stream) {

@@ -23,9 +23,11 @@ registration.cu:14-257 and tsdf_registration.cpp:28-105):
   ``reg_step_plain``: the damped 6x6 solve by LU, the pose update and the
   convergence tests), and the host reads the state's header once
   (``run_registration``).  On the CPU the plain loop (``loop_plain``)
-  runs the same steps.  The sharded path keeps a host loop
-  (``_gn_loop_host``, ``_lm_loop_host``), whose statistics are summed in
-  rank order on the host every iteration.
+  runs the same steps.  The sharded loop
+  (``parallel/sharded.run_registration_sharded``) runs the halves apart on
+  each rank's slab of the window (``RegProblem.x_lo``, ``x_rows``): K3's
+  rows of every rank are all-gathered, and K4 steps on them on every rank
+  alike; the host reads the header once every ``CHUNK`` iterations.
 
 Numerics: the statistics are float32 sums whose order differs from XLA's,
 and the 6x6 solve is an explicit LU rather than XLA's, so poses agree with
@@ -436,6 +438,31 @@ class RegProblem(NamedTuple):
     epsilon: float
     it_weight_gradient: float
     freeze_step_mm: float
+    x_lo: int = 0
+    x_rows: int | None = None
+
+
+def slab_of(prob: RegProblem) -> tuple[int, int]:
+    """(x_lo, x_rows): the window's ring rows [x_lo, x_lo + x_rows) whose
+    cells the problem owns and its fields hold (a rank's slab on a mesh;
+    the whole window by default).  A point whose cell lies in another row
+    adds nothing."""
+    return prob.x_lo, prob.size[0] if prob.x_rows is None else prob.x_rows
+
+
+def owned_index_fn(pos, offset, size, lo: int, hi: int):
+    """``index_fn`` of the statistics for the rows [lo, hi) of the window:
+    the slab-local array coords of each cell (zero where another row owns
+    it) and ownership."""
+
+    def index_fn(buf):
+        a = ring_coords(buf, pos, offset, size)
+        owned = (a[:, 0] >= lo) & (a[:, 0] < hi)
+        local = torch.stack([a[:, 0] - lo, a[:, 1], a[:, 2]], dim=-1)
+        return torch.where(owned[:, None], local,
+                           torch.zeros_like(local)), owned
+
+    return index_fn
 
 
 def init_state(prob: RegProblem, pretransform, device) -> torch.Tensor:
@@ -466,7 +493,9 @@ def pack_stats(H, g, e, c) -> torch.Tensor:
     return row
 
 
-def _stopped(state: torch.Tensor, prob: RegProblem) -> bool:
+def stopped(state: torch.Tensor, prob: RegProblem) -> bool:
+    """Whether the loop on ``state`` has ended (finished flag or
+    max_iterations); reads the state."""
     return bool(state[S_FIN] != 0) or int(state[S_I]) >= prob.max_iterations
 
 
@@ -478,19 +507,24 @@ def reg_stats_plain(state: torch.Tensor, prob: RegProblem,
     coarse_iterations``; with ``split``, gather into ``cache`` and
     evaluate, or (``frozen``) evaluate from it.  The first fine iteration
     gathers at the trial pose, which at ``i == 0`` is the pretransform,
-    where JAX's loop gathered its initial cache."""
-    if _stopped(state, prob):
+    where JAX's loop gathered its initial cache.  On a slab
+    (``slab_of``) only the points whose cells it owns count."""
+    if stopped(state, prob):
         return None
     i = int(state[S_I])
     total = state[S_TRIAL:S_TRIAL + 16].reshape(4, 4).to(prob.points.device)
     args = (prob.fields, prob.pos, prob.offset)
+    lo, rows = slab_of(prob)
+    index_fn = None if (lo, rows) == (0, prob.size[0]) else owned_index_fn(
+        prob.pos, prob.offset, prob.size, lo, lo + rows)
     if prob.layout == LAYOUT_PARITY:
         stats = jacobian_stats_fields(
             *args, prob.points, prob.mask, total, size=prob.size,
-            resolution=prob.resolution, normalize_gradient=prob.normalize)
+            resolution=prob.resolution, normalize_gradient=prob.normalize,
+            index_fn=index_fn)
         return pack_stats(*stats).to(state.device)
     kw = dict(size=prob.size, resolution=prob.resolution, tau=prob.tau,
-              interp=prob.interp)
+              interp=prob.interp, index_fn=index_fn)
     if prob.coarse_iterations > 0 and i < prob.coarse_iterations:
         stats = make_packed_stats(*args, prob.points[::4], prob.mask[::4],
                                   **kw)(total)
@@ -614,7 +648,7 @@ def reg_step_plain(state: torch.Tensor, partials, prob: RegProblem):
     Marquardt-damped solve from the accepted state, the next trial, and
     the tests: tiny step, the 4-error window, a non-finite step; the
     gather freeze.  Thresholds compare in float32."""
-    if partials is None or _stopped(state, prob):
+    if partials is None or stopped(state, prob):
         return None
     s = state
     f32 = torch.float32
@@ -714,9 +748,9 @@ def loop_plain(state: torch.Tensor, prob: RegProblem, stats_row, *,
     ``kernels.registration.reg_loop`` takes it; row i gets the carry before
     step i, the row of statistics and zeros for the other rows."""
     cache: dict = {}
-    while not _stopped(state, prob):
+    while not stopped(state, prob):
         for _ in range(chunk):
-            if _stopped(state, prob):
+            if stopped(state, prob):
                 break
             row = stats_row(state, cache)
             if trace is not None:
@@ -732,8 +766,7 @@ def host_loop(prob: RegProblem, pretransform, stats_row, *,
     """The loop with its state on the CPU (``loop_plain`` from
     ``init_state``): ``stats_row(state, cache)`` gives an iteration's
     partials on the CPU.  The loop the loop kernel is checked against
-    (``run_registration(host=True)``) and the sharded path's (its
-    statistics summed across ranks)."""
+    (``run_registration(host=True)``)."""
     state = init_state(prob, pretransform, "cpu")
     loop_plain(state, prob, stats_row, trace=trace)
     return state
@@ -767,13 +800,15 @@ def replay_trace(trace: torch.Tensor, final: torch.Tensor,
     return out, differ, tests, err
 
 
-def trace_stats(trace: torch.Tensor, iterations: int,
-                prob: RegProblem) -> list:
-    """Each traced iteration's rows of statistics, summed in the step's
-    order (``sum_partials``), against ``reg_stats_plain`` at the traced
-    carry (its cache gathered where the loop's was): a dict an iteration
-    with its mode, c and the plain version's c, and H's, g's and e's
-    largest difference relative to the plain version's largest entry."""
+def trace_stats(trace: torch.Tensor, iterations: int, prob: RegProblem,
+                rows: slice = slice(None)) -> list:
+    """Each traced iteration's rows of statistics (``rows`` of them: on a
+    mesh, one rank's, with ``prob`` that rank's slab), summed in the
+    step's order (``sum_partials``), against ``reg_stats_plain`` at the
+    traced carry (its cache gathered where the loop's was): a dict an
+    iteration with its mode, c and the plain version's c, and H's, g's and
+    e's largest difference relative to the plain version's largest
+    entry."""
     cache: dict = {}
     host = trace[:iterations].cpu()
     out = []
@@ -784,7 +819,8 @@ def trace_stats(trace: torch.Tensor, iterations: int,
             mode = "cached" if bool(host[k, S_FROZEN]) else "gather"
         else:
             mode = "full"
-        got = sum_partials(host[k, STATE_LEN:].reshape(-1, PARTIALS)).double()
+        got = sum_partials(
+            host[k, STATE_LEN:].reshape(-1, PARTIALS)[rows]).double()
         want = reg_stats_plain(trace[k, :STATE_LEN].clone(), prob,
                                cache)[0].cpu().double()
         rel = {key: float((got[lo:hi] - want[lo:hi]).abs().max()
@@ -794,64 +830,6 @@ def trace_stats(trace: torch.Tensor, iterations: int,
         out.append(dict(mode=mode, c=float(got[28]), c_plain=float(want[28]),
                         **rel))
     return out
-
-
-def _loop_problem(**kw) -> RegProblem:
-    """A RegProblem for ``host_loop`` over a statistics closure: the
-    loop's settings only (the step reads nothing else)."""
-    none = dict(fields=(), pos=None, offset=None, points=None, mask=None,
-                size=(), resolution=0, tau=0, layout=LAYOUT_PACKED,
-                interp=False, normalize=False, recenter=False,
-                coarse_iterations=0, split=False, it_weight_gradient=0.0,
-                freeze_step_mm=0.0)
-    return RegProblem(**{**none, **kw})
-
-
-def _gn_loop_host(stats, pretransform, *, max_iterations, it_weight_gradient,
-                  epsilon, mode):
-    """The GN loop on the host over a ``stats(total) -> (H, g, e, c)``
-    closure (the sharded path's, whose statistics are summed in rank
-    order on the host): one copy of the statistics to the host an
-    iteration and ``reg_step_plain``'s step.  Returns (pose on
-    ``pretransform``'s device, iterations)."""
-    device = pretransform.device
-    prob = _loop_problem(lm=False, recenter=mode == "fast",
-                         max_iterations=max_iterations, epsilon=epsilon,
-                         it_weight_gradient=it_weight_gradient)
-
-    def row(state, cache):
-        total = state[S_TRIAL:S_TRIAL + 16].reshape(4, 4).to(device)
-        return pack_stats(*stats(total)).cpu()
-
-    state = host_loop(prob, pretransform, row)
-    return (state[S_TRIAL:S_TRIAL + 16].reshape(4, 4).to(device),
-            int(state[S_I]))
-
-
-def _lm_loop_host(stats, pretransform, *, max_iterations, epsilon,
-                  split=None, freeze_step_mm: float = 0.0):
-    """The LM loop on the host over a ``stats(total)`` closure (the
-    sharded path's); ``split``: ``(gather_fn, eval_fn)`` for the gather
-    freeze.  Returns (pose on ``pretransform``'s device, iterations,
-    final error)."""
-    device = pretransform.device
-    prob = _loop_problem(lm=True, recenter=True, split=split is not None,
-                         max_iterations=max_iterations, epsilon=epsilon,
-                         freeze_step_mm=freeze_step_mm)
-
-    def row(state, cache):
-        total = state[S_TRIAL:S_TRIAL + 16].reshape(4, 4).to(device)
-        if split is None:
-            return pack_stats(*stats(total)).cpu()
-        gather_fn, eval_fn = split
-        if not bool(state[S_FROZEN] != 0):
-            cache.clear()
-            cache.update(gather_fn(total))
-        return pack_stats(*eval_fn(cache, total)).cpu()
-
-    state = host_loop(prob, pretransform, row)
-    return (state[S_ACC:S_ACC + 16].reshape(4, 4).to(device),
-            int(state[S_I]), float(state[S_ERR]))
 
 
 def run_registration(prob: RegProblem, pretransform, *, chunk: int = CHUNK,
@@ -878,12 +856,18 @@ def run_registration(prob: RegProblem, pretransform, *, chunk: int = CHUNK,
         state = init_state(prob, pretransform, prob.points.device)
         reg_loop(state, prob, chunk=chunk, trace=trace)
     head = state[:S_HEAD].tolist()
-    if state.is_cuda:
-        run_registration.syncs += 1
+    count_registration(head, 1 if state.is_cuda else 0, t0)
+    return state, head
+
+
+def count_registration(head: list, syncs: int, t0: float) -> None:
+    """Add one registration that ended with ``head`` to
+    ``run_registration``'s counts: its iterations, its ``syncs`` (header
+    reads of a CUDA state) and the host clock since ``t0``."""
+    run_registration.syncs += syncs
     run_registration.calls += 1
     run_registration.iterations += int(head[S_I])
     run_registration.seconds += time.perf_counter() - t0
-    return state, head
 
 
 def reset_registration_counts() -> None:
