@@ -77,6 +77,14 @@ Phases (each raises on failure; nothing falls back to the CPU):
 9. ray-march fusion: one fuse_cloud(fusion="raymarch") on CUDA and on CPU
    tensors at a 161 x 161 x 61 window (0 value/weight mismatches), then
    its time at the default window;
+9b. OFFLINE: eval.pcd2tsdf and eval.pcd_registration through their CLIs
+   at the defaults (the synthetic BoxWorld scan) on the card, then with
+   --device cpu in the same process: pcd2tsdf's exact agreement with its
+   host twin 1.0 and its ray-marched volumes the CPU's bit for bit; each
+   of pcd_registration's five cases one launch of the loop kernel and one
+   sync, within OFFLINE_JAX_AVG_MM's bounds, in the CPU run's iterations
+   and, in the three cases JAX's CLI recovers, within 1 mm of the CPU
+   run's average error;
 10. FeatsenseApp(device="cuda", fusion="auto") at configs/default.yaml on
    10 scans with translation and yaw, twice: finite poses, every pose of
    the second run equal to the first's bit for bit, final-pose error below
@@ -115,7 +123,14 @@ Phases (each raises on failure; nothing falls back to the CPU):
    APP's 10 scans, each pose equal to the single-GPU WarpsenseApp's at the
    same window and settings to the bit, at most ceil(iterations / CHUNK)
    syncs a registration (sync debug mode), its traced registration
-   replayed;
+   replayed; after each rank's counts were read, the same scans again
+   with a LiveMonitor on every rank (the gloo ranks at a rate limit that
+   takes at least 3 map snapshots, the NCCL rank at a period of 0 beside
+   the single-GPU app with the same monitor, scan by scan): the
+   unmonitored run's poses to the bit, the monitor's path those poses,
+   every snapshot the rank's slab at its scan (the ranks' slabs in rank
+   order), the gloo ranks' snapshots and status equal, the NCCL rank's
+   every snapshot the single-GPU app's, each gather's host time printed;
 14. utils.device_query --bandwidth (one JSON line per card);
 15. eval.feature_compare on the card on one synthetic 128 x 1024 scan: the
    device picks within 1% of the host twin's (Jaccard at least 0.99), with
@@ -271,8 +286,34 @@ SLAM_EVAL_JAX_ATE_M = {"warpsense": 0.0039, "featsense": 0.0063}
 # same process.  Held to APP's ATE bound, equal poses on every rank, the
 # gathered one-scan fusion and fields equal to the single-GPU kernels'
 # bits, the NCCL rank's poses the single-GPU app's bits.
+# Then each rank runs the same scans again with a live monitor (after the
+# counted run, so the monitor is off on every timed path): the gloo ranks
+# at a rate limit of monitor_period_scans of their median unmonitored scan
+# plus the monitor's copy of a snapshot, a snapshot every second or third
+# scan (at least min_snapshots; the clock starts after each ~0.5 s gather
+# of 368 MB through gloo), the NCCL rank at a period of 0 beside the
+# single-GPU app with the same monitor.
 SHARDED = dict(APP, size=(626, 625, 235), world=2, backend="gloo",
-               device="cuda:0", join_timeout_s=600)
+               device="cuda:0", join_timeout_s=600, monitor_period_scans=2.0,
+               min_snapshots=3)
+# eval.pcd2tsdf and eval.pcd_registration through their CLIs at the
+# defaults (the synthetic BoxWorld scan, 201 x 201 x 121 at 64 mm, up to
+# 200 iterations), on the card and then on the CPU in the same process.
+# JAX's CLI on the CPU leaves these average re-projection errors (mm) on
+# the same cloud (tests/_jax_offline_reference.py); it recovers neither
+# translation case to the 120 mm that tests/test_torch_eval.py holds on its
+# smaller room, so a case's bound is the larger of that (idle: 20 mm) and
+# twice JAX's.  The card takes the CPU run's iterations in every case, and
+# in each case that JAX recovers (its bound the test's) ends within cpu_mm
+# of the CPU run's average.  The two it does not recover stop at 200
+# iterations wherever their float sums led them: the CPU run and JAX's
+# part by 5 and 34 mm there, the card and the CPU run by ~90.
+OFFLINE_JAX_AVG_MM = {"idle": 5.343475980760351,
+                      "translation": 307.39163578914645,
+                      "rotation": 42.298168682340716,
+                      "rotation_inv": 34.725766719801534,
+                      "translation+rotation": 291.12442625326736}
+OFFLINE = dict(idle_bound_mm=20.0, case_bound_mm=120.0, cpu_mm=1.0)
 # feature_compare on one synthetic 128 x 1024 scan, with capacities above
 # the scan's feature counts so the device sets are not cut
 FEATURE_COMPARE = dict(channels=128, columns=1024, edge_capacity=4096,
@@ -1758,6 +1799,111 @@ def check_raymarch(torch, device, card_name):
     return out
 
 
+# ---------------------------------------------------------------- phase 9b
+def run_offline(torch, device):
+    """eval.pcd2tsdf and eval.pcd_registration through their CLIs at the
+    defaults on the card, then the same calls with --device cpu in this
+    process as the yardstick: pcd2tsdf's exact agreement with its host twin
+    1.0, and every volume it builds the CPU's bit for bit; each
+    registration case within its bound, in the CPU run's iterations and,
+    where JAX recovers it, within OFFLINE["cpu_mm"] of the CPU run's
+    average; one loop-kernel launch and one sync a registration on the
+    card."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from warpsense_tpu_torch.eval import pcd2tsdf, pcd_registration
+    from warpsense_tpu_torch.ops import registration as treg
+    volume, register = pcd2tsdf.tsdf_volume, treg.register_cloud
+    volumes, cases, now = {}, {}, {}
+
+    def kept(*a, **kw):
+        state, ms = volume(*a, **kw)
+        volumes.setdefault(now["dev"], []).append(state)
+        return state, ms
+
+    def counted(*a, **kw):
+        before = read_launches()
+        t0 = time.perf_counter()
+        pose = register(*a, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        cases.setdefault(now["dev"], []).append(dict(
+            {k: after[k] - before[k] for k in (
+                "reg_loop", "registrations", "reg_iterations", "reg_syncs")},
+            ms=ms))
+        return pose
+
+    out = {}
+    pcd2tsdf.tsdf_volume, treg.register_cloud = kept, counted
+    try:
+        for dev in (str(device), "cpu"):
+            now["dev"] = dev
+            reset_launches()
+            run = {}
+            for name, mod in (("pcd2tsdf", pcd2tsdf),
+                              ("pcd_registration", pcd_registration)):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    run[name] = mod.main(["--device", dev])
+                run[name + "_s"] = time.perf_counter() - t0
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                run["launches"] = read_launches()
+            out[dev] = run
+    finally:
+        pcd2tsdf.tsdf_volume, treg.register_cloud = volume, register
+    card, cpu = out[str(device)], out["cpu"]
+    mismatches = [int((a.value.cpu() != b.value).sum()
+                      + (a.weight.cpu() != b.weight).sum())
+                  for a, b in zip(volumes[str(device)], volumes["cpu"])]
+    reg = {}
+    for i, name in enumerate(card["pcd_registration"]):
+        got, want = card["pcd_registration"][name], cpu["pcd_registration"][
+            name]
+        jax = OFFLINE_JAX_AVG_MM[name]
+        bound = (OFFLINE["idle_bound_mm"] if name == "idle" else max(
+            OFFLINE["case_bound_mm"], 2 * jax))
+        reg[name] = dict(avg_mm=got["avg"], cpu_avg_mm=want["avg"],
+                         jax_avg_mm=jax, bound_mm=bound,
+                         jax_recovers=2 * jax <= OFFLINE["case_bound_mm"],
+                         max_mm=got["max"], **cases[str(device)][i],
+                         cpu_ms=cases["cpu"][i]["ms"],
+                         cpu_iterations=cases["cpu"][i]["reg_iterations"])
+    launches = card["launches"]
+    rep = dict(pcd2tsdf=dict(card=card["pcd2tsdf"], cpu=cpu["pcd2tsdf"],
+                             volumes=len(mismatches),
+                             volume_mismatches=mismatches,
+                             seconds=card["pcd2tsdf_s"],
+                             cpu_seconds=cpu["pcd2tsdf_s"]),
+               pcd_registration=reg,
+               pcd_registration_seconds=card["pcd_registration_s"],
+               pcd_registration_cpu_seconds=cpu["pcd_registration_s"],
+               launches=launches,
+               registration=registration_report(launches, "offline"))
+    log("[offline]", json.dumps(rep))
+    p = rep["pcd2tsdf"]
+    if not (p["card"]["exact_agreement"] == 1.0 == p["cpu"][
+            "exact_agreement"] and len(mismatches) == 3
+            and not any(mismatches)
+            and p["card"]["touched_voxels_device"]
+            == p["cpu"]["touched_voxels_device"] > 0):
+        raise AssertionError(f"pcd2tsdf on the card: {p}")
+    for name, c in reg.items():
+        if not (np.isfinite(c["avg_mm"]) and c["avg_mm"] < c["bound_mm"]
+                and c["reg_iterations"] == c["cpu_iterations"]
+                and (abs(c["avg_mm"] - c["cpu_avg_mm"]) <= OFFLINE["cpu_mm"]
+                     or not c["jax_recovers"])
+                and c["reg_loop"] == c["registrations"] == c["reg_syncs"]
+                == 1):
+            raise AssertionError(f"pcd_registration {name} on the card: {c}")
+    if len(reg) != len(OFFLINE_JAX_AVG_MM):
+        raise AssertionError(f"pcd_registration ran {list(reg)}")
+    return rep
+
+
 # ---------------------------------------------------------------- phase 10
 def featsense_scans(cfg):
     import numpy as np
@@ -2061,6 +2207,117 @@ def run_slam_eval(torch, device):
 
 
 # ---------------------------------------------------------------- phase 13
+def _snapshot_digest(snap) -> str:
+    import numpy as np
+    h = hashlib.sha256()
+    for plane in snap:
+        h.update(np.ascontiguousarray(plane).tobytes())
+    return h.hexdigest()
+
+
+def _publish_copy_s(size) -> float:
+    """Host seconds of the copy ``LiveMonitor.publish_map`` makes of a
+    gathered window of ``size`` (value and weight, int16), on this host."""
+    import numpy as np
+    plane = np.ones(size, np.int16)
+    t0 = time.perf_counter()
+    np.array(plane)
+    np.array(plane)
+    return time.perf_counter() - t0
+
+
+def _monitored_run(torch, cfg, mesh, scans, period_s, single=False):
+    """The sharded app on ``scans`` again, with a LiveMonitor of
+    ``period_s`` on this rank: each map snapshot held to this rank's slab
+    at its scan (its rows of the window, value and weight, and pos and
+    offset, bit for bit) and digested, each gather timed on the host
+    clock; the monitor's path and status.  The snapshot callback only
+    keeps the snapshot and a device copy of the slab; the checks run after
+    the scans, off the monitor's clock.  With ``single`` the single-GPU
+    WarpsenseApp with the same monitor period steps beside it, scan by
+    scan, and each of its snapshots must be the sharded app's."""
+    import numpy as np
+
+    from warpsense_tpu_torch.obs.live import LiveMonitor
+    from warpsense_tpu_torch.pipeline import warpsense_sharded as ws
+    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
+    device = mesh.device
+    lo, hi = ws.slab_rows(mesh, cfg["size"][0])
+    gather, gather_ms = ws.gather_state, []
+
+    def timed_gather(state, m):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = gather(state, m)          # host arrays: the work has ended
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    poses, kept, last = [], [], {}
+
+    def on_map(snap):
+        kept.append((len(poses), snap, [t.clone() for t in app.state]))
+        last["sharded"] = snap
+
+    def watched():
+        mon = LiveMonitor(map_snapshot_period_s=period_s)
+        mon.subscribe("map", on_map)
+        return mon
+
+    mon = watched()
+    kw = dict(in_memory_map=True, capacity=cfg["capacity"],
+              window_size=cfg["size"], sync_shift=True)
+    ws.gather_state = timed_gather
+    try:
+        app = ws.ShardedWarpsenseApp(app_params(cfg), mesh=mesh, monitor=mon,
+                                     **kw)
+        if single:
+            one_mon = LiveMonitor(map_snapshot_period_s=period_s)
+            one_mon.subscribe("map", lambda s: last.__setitem__("one", s))
+            one = WarpsenseApp(app_params(cfg), force_odd=False,
+                               fusion="projective-level", device=device,
+                               monitor=one_mon, **kw)
+            single_poses, single_equal = [], []
+        for i, scan in enumerate(scans):
+            last.clear()
+            poses.append(app.cloud_callback(scan, 0.1 * i))
+            if single:
+                single_poses.append(one.cloud_callback(scan, 0.1 * i))
+                a, b = last.get("sharded"), last.get("one")
+                single_equal.append(a is not None and b is not None and all(
+                    np.array_equal(x, y.cpu().numpy()) for x, y in zip(a, b)))
+        app.terminate()
+    finally:
+        ws.gather_state = gather
+    snaps = []
+    for scan, snap, own in kept:
+        own = [t.cpu().numpy() for t in own]
+        snaps.append(dict(
+            scan=scan, shape=list(snap.value.shape),
+            digest=_snapshot_digest(snap),
+            own_rows_equal=bool(
+                np.array_equal(snap.value[lo:hi], own[0])
+                and np.array_equal(snap.weight[lo:hi], own[1])
+                and np.array_equal(snap.pos, own[2])
+                and np.array_equal(snap.offset, own[3]))))
+    del kept[:]
+    status = json.loads(mon.status_json())
+    out = dict(period_s=period_s, snapshots=snaps, gather_ms=gather_ms,
+               poses=np.stack(poses).tolist(),
+               path_equal=len(mon.path) == len(poses) and all(
+                   np.array_equal(p, q.astype(np.float64))
+                   for (_, p), q in zip(mon.path, poses)),
+               status={k: status.get(k) for k in (
+                   "scans", "map_epoch", "shifts", "last_shift_pos")})
+    if single:
+        one.terminate()
+        out.update(single_poses=np.stack(single_poses).tolist(),
+                   single_snapshots_equal=single_equal,
+                   single_status={k: json.loads(one_mon.status_json()).get(k)
+                                  for k in out["status"]})
+    return out
+
+
 def _sharded_rank(rank, world, backend, store, out_dir, cfg):
     """One rank of the SHARDED phase (a spawned process)."""
     import numpy as np
@@ -2078,7 +2335,6 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
         tsdf_update_projective
     from warpsense_tpu_torch.parallel import sharded as sh
     from warpsense_tpu_torch.parallel.distributed import gather_state
-    from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
     from warpsense_tpu_torch.pipeline.warpsense_sharded import \
         ShardedWarpsenseApp
 
@@ -2204,19 +2460,20 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
                 device_us=getattr(e, "self_device_time_total", 0))
                 for e in ops[:10]]
         del last[:]
-        if cfg.get("single_app"):
-            # the single-GPU app at the same window and settings, in this
-            # process, after the sharded app's counts were read
-            one = WarpsenseApp(app_params(cfg), in_memory_map=True,
-                               capacity=cfg["capacity"],
-                               window_size=cfg["size"], force_odd=False,
-                               fusion="projective-level", sync_shift=True,
-                               device=device)
-            single = [one.cloud_callback(scan, 0.1 * i)
-                      for i, scan in enumerate(scans)]
-            one.terminate()
-            out["single_poses"] = np.stack(single).tolist()
-            del one
+        # the same scans with a live monitor, after the counts were read:
+        # with ``single_app`` (the NCCL rank) at a period of 0 beside the
+        # single-GPU app at the same window and settings, in this process;
+        # else at monitor_period_scans of this rank's median scan after
+        # the monitor's own copy of a snapshot (the clock runs on through
+        # it)
+        single = bool(cfg.get("single_app"))
+        period = 0.0 if single else (
+            cfg["monitor_period_scans"] * float(np.median(scan_ms)) / 1e3
+            + _publish_copy_s(cfg["size"]))
+        out["monitor"] = _monitored_run(torch, cfg, mesh, scans, period,
+                                        single=single)
+        if single:
+            out["single_poses"] = out["monitor"].pop("single_poses")
         if world > 1:
             # the sharded fields of the app's map, gathered, against
             # the single-GPU kernel on the gathered window
@@ -2453,11 +2710,68 @@ def run_sharded(torch, cfg):
                                  f"{r['fused_scans']}")
     if not np.all(np.isfinite(nccl_poses)):
         raise AssertionError("non-finite pose in the NCCL run")
+    monitor = check_sharded_monitor(cfg, ranks, nccl)
     launches = {k: sum(r["launches"][k] for r in ranks) for k in
                 ranks[0]["launches"]}
     return dict(rep, launches=launches, nccl_launches=nccl["launches"],
                 registration=reg_reps, nccl=nccl_rep,
-                nccl_registration=nccl_reg)
+                nccl_registration=nccl_reg, monitor=monitor)
+
+
+def check_sharded_monitor(cfg, ranks, nccl) -> dict:
+    """The monitored runs: on every rank the unmonitored run's poses to the
+    bit, the monitor's path those poses, every snapshot this rank's slab at
+    its scan; the gloo ranks' snapshots (at least min_snapshots) and status
+    equal, the NCCL rank's snapshot every scan the single-GPU app's."""
+    import numpy as np
+    reps = []
+    for r in ranks + [nccl]:
+        m = r["monitor"]
+        snaps = m["snapshots"]
+        rep = dict(rank=r["rank"], backend=r["backend"],
+                   period_s=m["period_s"], snapshots=len(snaps),
+                   snapshot_scans=[sn["scan"] for sn in snaps],
+                   gather_ms=m["gather_ms"],
+                   gather_ms_median=(float(np.median(m["gather_ms"]))
+                                     if m["gather_ms"] else None),
+                   status=m["status"],
+                   poses_equal_unmonitored=bool(np.array_equal(
+                       np.asarray(m["poses"], np.float32),
+                       np.asarray(r["poses"], np.float32))),
+                   path_equal=m["path_equal"],
+                   own_rows_equal=all(sn["own_rows_equal"] for sn in snaps),
+                   shape_ok=all(sn["shape"] == list(cfg["size"])
+                                for sn in snaps))
+        if "single_snapshots_equal" in m:
+            rep.update(single_snapshots_equal=m["single_snapshots_equal"],
+                       single_status=m["single_status"])
+        reps.append(rep)
+        log("[sharded monitor]", json.dumps(rep))
+        if not (rep["poses_equal_unmonitored"] and rep["path_equal"]
+                and rep["own_rows_equal"] and rep["shape_ok"] and snaps
+                and rep["status"]["map_epoch"] == len(snaps)
+                and rep["status"]["scans"] == len(r["poses"])
+                and (rep["status"]["shifts"] or 0) >= 1):
+            raise AssertionError(f"rank {r['rank']} ({r['backend']}): the "
+                                 f"monitored run differs: {rep}")
+    gloo, one = reps[:-1], reps[-1]
+    digests = [[sn["digest"] for sn in r["monitor"]["snapshots"]]
+               for r in ranks]
+    if len(gloo[0]["snapshot_scans"]) < cfg["min_snapshots"] or any(
+            d != digests[0] for d in digests) or any(
+            g["status"] != gloo[0]["status"]
+            or g["snapshot_scans"] != gloo[0]["snapshot_scans"]
+            for g in gloo):
+        raise AssertionError(f"the gloo ranks' monitors differ or took "
+                             f"fewer than {cfg['min_snapshots']} snapshots: "
+                             f"{gloo}")
+    if not (one["snapshots"] == len(nccl["poses"])
+            and len(one["single_snapshots_equal"]) == len(nccl["poses"])
+            and all(one["single_snapshots_equal"])
+            and one["single_status"] == one["status"]):
+        raise AssertionError(f"the NCCL rank's snapshots are not the "
+                             f"single-GPU app's: {one}")
+    return dict(ranks=gloo, nccl=one)
 
 
 # ---------------------------------------------------------------- phase 14
@@ -2552,6 +2866,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("raymarch", check_raymarch, torch, device, card["nvidia_smi"])
     torch.cuda.empty_cache()
+    offline = phase("offline", run_offline, torch, device)
+    torch.cuda.empty_cache()
     feats = phase("featsense_app", run_featsense_app, torch, FEATSENSE,
                   device)
     torch.cuda.empty_cache()
@@ -2565,6 +2881,7 @@ def main() -> int:
           FEATURE_COMPARE)
     paths = {"fast_app": app["launches"], "tilt_app": tilt["launches"],
              "parity_app": parity["launches"],
+             "offline": offline["launches"],
              "featsense_app": feats["launches"],
              "fastsense": fast["launches"], "slam_eval": evals["launches"],
              "sharded": sharded["launches"],

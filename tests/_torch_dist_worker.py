@@ -9,6 +9,7 @@ runs the JAX functions and compares.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 
@@ -336,10 +337,75 @@ def walk_scans(n=6):
                                noise_std=0.002, rng=rng) for p in poses]
 
 
+COLLECTIVES = ("all_reduce", "all_gather")
+
+
+@contextlib.contextmanager
+def counting_collectives(counts: dict):
+    """Add to ``counts[name]`` each call of ``torch.distributed.<name>``
+    (the names of COLLECTIVES) made inside the block."""
+    saved = {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+    for n in COLLECTIVES:
+        setattr(dist, n, counted(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _walk(app, scans, mesh, windows=False) -> dict:
+    """``app`` on the walk: its poses, the collectives its scans called
+    and, with ``windows``, the window gathered from the slabs after each
+    scan (outside the count)."""
+    from warpsense_tpu_torch.parallel.distributed import gather_state
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    traj, seen = [], []
+    for i, scan in enumerate(scans):
+        with counting_collectives(counts):
+            traj.append(app.cloud_callback(scan, float(i)))
+        if windows:
+            seen.append(gather_state(app.state, mesh))
+    out = dict(traj=np.stack(traj), **counts)
+    for k in ("value", "weight", "pos", "offset") if windows else ():
+        out["window_" + k] = np.stack([getattr(s, k) for s in seen])
+    return out
+
+
+def monitor_report(mon, snaps, shifts) -> dict:
+    """What a LiveMonitor received: every map snapshot's planes, the path,
+    the shift positions and the status."""
+    out = dict(path=np.stack([p for _, p in mon.path]),
+               stamps=np.asarray([s for s, _ in mon.path]),
+               shifts=np.asarray(shifts, np.int64).reshape(-1, 3),
+               status=np.asarray(mon.status_json()))
+    for k in ("value", "weight", "pos", "offset"):
+        out["snap_" + k] = np.stack([np.asarray(getattr(s, k))
+                                     for s in snaps])
+    return out
+
+
+def watched(period_s=0.0):
+    """(LiveMonitor, its map snapshots, its shift positions)."""
+    from warpsense_tpu_torch.obs.live import LiveMonitor
+    mon = LiveMonitor(map_snapshot_period_s=period_s)
+    snaps, shifts = [], []
+    mon.subscribe("map", snaps.append)
+    mon.subscribe("shift", lambda pos: shifts.append(np.asarray(pos)))
+    return mon, snaps, shifts
+
+
 def run_app(mesh, outdir: str) -> dict:
     """The sharded app on the walk with a 0.25 m shift (each rank persists
-    its own rows), a resume from those files, and the featsense mesh back
-    end on the same scans with a 0.15 m shift."""
+    its own rows), a resume from those files, the same walk with a live
+    monitor on every rank (period 0) and on rank 0 only, and the featsense
+    mesh back end on the same scans with a 0.15 m shift."""
     from warpsense_tpu_torch.core.config import Params
     from warpsense_tpu_torch.parallel.distributed import gather_state
     from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
@@ -350,15 +416,25 @@ def run_app(mesh, outdir: str) -> dict:
     kw = dict(mesh=mesh, map_path=f"{outdir}/mh.h5", capacity=8192,
               window_size=WINDOW)
     app = ShardedWarpsenseApp(Params.from_dict(app_config(0.25)), **kw)
-    traj = [app.cloud_callback(scan, float(i))
-            for i, scan in enumerate(scans)]
+    plain = _walk(app, scans, mesh)
+    traj = plain["traj"]
     pos = app.state.pos.numpy().copy()
     app.terminate()
+    out = {"plain_" + k: plain[k] for k in COLLECTIVES}
+    for name, on in (("mon", True), ("r0", mesh.rank == 0)):
+        mon, snaps, shifts = watched() if on else (None, None, None)
+        mapp = ShardedWarpsenseApp(Params.from_dict(app_config(0.25)),
+                                   **dict(kw, map_path=f"{outdir}/{name}.h5"),
+                                   monitor=mon)
+        got = _walk(mapp, scans, mesh, windows=name == "mon")
+        mapp.terminate()
+        if on:
+            got.update(monitor_report(mon, snaps, shifts))
+        out.update({f"{name}_{k}": v for k, v in got.items()})
     again = ShardedWarpsenseApp(Params.from_dict(app_config(0.25)),
                                 resume=True, **kw)
     resumed = gather_state(again.state, mesh)
-    out = dict(traj=np.stack(traj), pos=pos,
-               resumed_pose=again.pose.copy(),
+    out.update(traj=traj, pos=pos, resumed_pose=again.pose.copy(),
                resumed_initialized=np.asarray(again.initialized),
                resumed_weight=resumed.weight, resumed_pos=resumed.pos)
     again.terminate()

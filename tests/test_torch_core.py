@@ -47,6 +47,9 @@ def test_import_leaves_jax_out():
             "warpsense_tpu_torch.eval.merge_maps",
             "warpsense_tpu_torch.eval.slam_eval",
             "warpsense_tpu_torch.eval.feature_compare",
+            "warpsense_tpu_torch.eval.pcd2tsdf",
+            "warpsense_tpu_torch.eval.pcd_registration",
+            "warpsense_tpu_torch.obs.live",
             "warpsense_tpu_torch.frontends.featsense.floam_original",
             "warpsense_tpu_torch.frontends.featsense.features_reference"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

@@ -951,3 +951,93 @@ def test_sharded_kernels_raise_on_a_failed_launch(reg_problems, monkeypatch):
     with pytest.raises(RuntimeError, match="sharded statistics"):
         run_registration_sharded(prob, pose, make_mesh("cuda"))
     assert (kreg.shard_stats.launches, kreg.shard_step.launches) == launches
+
+
+def test_sharded_app_monitor_on_cuda_is_the_single_gpu_apps(cuda):
+    """The sharded app at a world of one (no group) with a live monitor on
+    the card publishes, scan by scan, the single-GPU app's map snapshots
+    (period 0: every scan), path and status, bit for bit."""
+    from warpsense_tpu_torch.obs.live import LiveMonitor
+    from warpsense_tpu_torch.parallel.sharded import make_mesh
+    from warpsense_tpu_torch.pipeline.warpsense_sharded import \
+        ShardedWarpsenseApp
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 12, "y": 10, "z": 6}, "shift": 0.18,
+                "update_distance": 0.05},
+        "registration": {"max_iterations": 20, "epsilon": 0.03,
+                         "it_weight_gradient": 0.1, "mode": "fast"},
+        "lidar": {"channels": 16, "hresolution": 128}})
+    scans = _walk_scans(6, 16, 128)
+    kw = dict(in_memory_map=True, capacity=2048, window_size=(96, 79, 47),
+              sync_shift=True)
+    runs = []
+    for sharded in (True, False):
+        mon = LiveMonitor(map_snapshot_period_s=0.0)
+        snaps, shifts = [], []
+        mon.subscribe("map", lambda s: snaps.append(
+            [np.asarray(x.cpu() if torch.is_tensor(x) else x) for x in s]))
+        mon.subscribe("shift", lambda pos: shifts.append(np.asarray(pos)))
+        app = (ShardedWarpsenseApp(params, mesh=make_mesh(cuda), monitor=mon,
+                                   **kw) if sharded else
+               WarpsenseApp(params, force_odd=False,
+                            fusion="projective-level", device=cuda,
+                            monitor=mon, **kw))
+        poses = np.stack([app.cloud_callback(s, 0.1 * i)
+                          for i, s in enumerate(scans)])
+        app.terminate()
+        runs.append((poses, mon, snaps, shifts))
+    (poses, mon, snaps, shifts), (want, one, one_snaps, one_shifts) = runs
+    np.testing.assert_array_equal(poses, want)
+    assert len(snaps) == len(one_snaps) == len(scans)
+    for a, b in zip(snaps, one_snaps):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert shifts and len(shifts) == len(one_shifts)
+    for a, b in zip(shifts, one_shifts):
+        np.testing.assert_array_equal(a, b)
+    assert mon.tum_path() == one.tum_path()
+    for k in ("scans", "map_epoch", "shifts", "last_shift_pos"):
+        assert mon.status[k] == one.status[k], k
+
+
+def test_offline_clis_on_cuda_match_cpu(cuda, monkeypatch):
+    """eval.pcd2tsdf and eval.pcd_registration at their CLI defaults on the
+    card against the same calls on the CPU (chip_smoke's OFFLINE bounds):
+    the ray march's volumes equal bit for bit and the host twin's exact
+    agreement 1.0; idle below 20 mm, each registration one launch of the
+    loop kernel, and each case the CPU run recovers (below 120 mm) within
+    1 mm of it.  The translation cases are recovered by neither package at
+    these defaults: after 200 iterations the card and the CPU part by
+    ~90 mm there."""
+    from warpsense_tpu_torch.eval import pcd2tsdf, pcd_registration
+    from warpsense_tpu_torch.kernels.registration import reg_loop
+    volume, volumes = pcd2tsdf.tsdf_volume, []
+
+    def kept(*a, **kw):
+        state, ms = volume(*a, **kw)
+        volumes.append(state)
+        return state, ms
+    monkeypatch.setattr(pcd2tsdf, "tsdf_volume", kept)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        launches = reg_loop.launches
+        out[dev] = (pcd2tsdf.main(["--device", dev]),
+                    pcd_registration.main(["--device", dev]),
+                    reg_loop.launches - launches)
+    (card, card_reg, card_launches), (cpu, cpu_reg, cpu_launches) = \
+        out["cuda"], out["cpu"]
+    assert card["exact_agreement"] == cpu["exact_agreement"] == 1.0
+    assert card["touched_voxels_device"] == cpu["touched_voxels_device"] > 0
+    assert len(volumes) == 6
+    for a, b in zip(volumes[:3], volumes[3:]):
+        assert torch.equal(a.value.cpu(), b.value)
+        assert torch.equal(a.weight.cpu(), b.weight)
+    assert (card_launches, cpu_launches) == (len(card_reg), 0)
+    assert card_reg["idle"]["avg"] < 20.0
+    recovered = [k for k, v in cpu_reg.items() if v["avg"] < 120.0]
+    assert len(recovered) == 3, cpu_reg
+    for name in recovered:
+        got = card_reg[name]
+        assert abs(got["avg"] - cpu_reg[name]["avg"]) <= 1.0, (
+            name, got, cpu_reg[name])

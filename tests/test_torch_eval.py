@@ -165,6 +165,37 @@ def test_slam_eval_cli_defaults_to_the_card(tmp_path):
         tse.main(["--pipeline", "warpsense-mesh", "--device", "cpu"])
 
 
+def test_interop_helpers_default_to_the_card():
+    """The carry-across helpers (``interop.*_from_numpy``) put the state on
+    the card unless the caller asks for the CPU: without a GPU they
+    raise; with ``device="cpu"`` they build it on the CPU."""
+    from warpsense_tpu_torch import interop
+    plane = np.zeros((3, 3, 3), np.int32)
+    pts, mask = np.zeros((4, 3), np.float32), np.ones(4, bool)
+    helpers = {
+        "state": lambda **kw: interop.state_from_numpy(
+            plane, plane, [0, 0, 0], [1, 1, 1], **kw).value,
+        "packed": lambda **kw: interop.packed_fields_from_numpy(
+            plane, **kw).plane,
+        "exact": lambda **kw: interop.packed_fields_from_numpy(
+            plane, plane, **kw).plane_b,
+        "parity": lambda **kw: interop.registration_fields_from_numpy(
+            plane, plane, plane, **kw).gz,
+        "feature_map": lambda **kw: interop.feature_map_from_numpy(
+            pts, mask, **kw).points,
+        "odometry": lambda **kw: interop.odom_estimation_from_numpy(
+            (pts, mask), (pts, mask), np.eye(4), np.eye(4), 0, False,
+            edge_map_capacity=4, surf_map_capacity=4, **kw).edge_map.points,
+    }
+    for name, make in helpers.items():
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+        assert make(device="cpu").device.type == "cpu", name
+
+
 def test_slam_eval_sharded_cli_matches_jax(tmp_path, capsys, monkeypatch):
     """``--pipeline warpsense-sharded``, 4 scans of 16 x 256, as a world of
     one against the JAX CLI on its 8-device CPU mesh (a 392-voxel x extent

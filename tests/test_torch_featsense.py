@@ -239,7 +239,7 @@ def test_voxel_downsample_and_merge_match_jax():
     np.testing.assert_allclose(_sorted_rows(tp.numpy()[jm]),
                                _sorted_rows(np.asarray(jp)[jm]), atol=1e-6)
     jmap = jodo.FeatureMapState(jp, jnp.asarray(jm))
-    tmap = feature_map_from_numpy(np.asarray(jp), jm)
+    tmap = feature_map_from_numpy(np.asarray(jp), jm, device="cpu")
     new = rng.uniform(-6, 6, (500, 3)).astype(np.float32)
     center = np.array([1.0, -0.5, 0.0], np.float32)
     jout = jodo.merge_map(jmap, jnp.asarray(new), jnp.ones(500, bool),
@@ -294,8 +294,8 @@ def test_odom_update_matches_jax(count):
         jnp.asarray(one[3]), jnp.asarray(q0), jnp.asarray(t0),
         jnp.int32(count))
     tq, tt = todo.odom_update(
-        feature_map_from_numpy(edge_w, one[0]),
-        feature_map_from_numpy(surf_w, one[1]), _t(e_s),
+        feature_map_from_numpy(edge_w, one[0], device="cpu"),
+        feature_map_from_numpy(surf_w, one[1], device="cpu"), _t(e_s),
         _t(one[2], torch.bool), _t(s_s), _t(one[3], torch.bool), _t(q0),
         _t(t0), count)
     assert np.max(np.abs(tt.numpy() - np.asarray(jt))) < 5e-3
@@ -324,7 +324,7 @@ def test_odom_estimation_steps_match_jax_from_the_same_state():
             (np.asarray(jest.edge_map.points), np.asarray(jest.edge_map.mask)),
             (np.asarray(jest.surf_map.points), np.asarray(jest.surf_map.mask)),
             jest.odom, jest.last_odom, jest.optimization_count,
-            jest.initialized, **kw)
+            jest.initialized, **kw, device="cpu")
         args = (e_s, np.ones(len(e_s), bool), s_s, np.ones(len(s_s), bool))
         want, got = jest.update(*args), test.update(*args)
         assert np.max(np.abs(got[:3, 3] - want[:3, 3])) < 15e-3, i

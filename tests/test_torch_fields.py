@@ -27,7 +27,7 @@ def _states(seed, size=(37, 29, 23), tau=TAU):
     j = JState(value=jnp.asarray(v), weight=jnp.asarray(w),
                pos=jnp.asarray(pos, jnp.int32),
                offset=jnp.asarray(off, jnp.int32))
-    return j, state_from_numpy(v, w, pos, off)
+    return j, state_from_numpy(v, w, pos, off, device="cpu")
 
 
 @pytest.mark.parametrize("seed,tau", [(0, 600), (2, 300), (3, 32767)])

@@ -68,7 +68,7 @@ def _jfresh():
 
 def _tfresh():
     return state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), [0, 0, 0],
-                            [s // 2 for s in SIZE])
+                            [s // 2 for s in SIZE], device="cpu")
 
 
 def _tfuse(st, pts, mask, origin, R, level):
@@ -141,7 +141,8 @@ def test_fusion_ring_offset_window():
     a = jtp.tsdf_update_projective(j, jnp.asarray(pts), jnp.asarray(mask),
                                    jnp.asarray([3, -2, 1], jnp.int32),
                                    jnp.eye(3, dtype=jnp.float32), **KW)
-    t = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), pos, off)
+    t = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), pos, off,
+                         device="cpu")
     t = _tfuse(t, pts, mask, (3, -2, 1), np.eye(3, dtype=np.float32),
                level=True)
     _assert_same(t, a)

@@ -48,7 +48,8 @@ def _inputs(name):
     pos, offset, scanner, cloud = CASES[name]
     if offset is None:
         offset = [s // 2 for s in SIZE]
-    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), pos, offset)
+    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), pos, offset,
+                          device="cpu")
     pts = box_room_cloud(6000, 1000, 700, seed=3)
     mask = np.ones(len(pts), bool)
     if cloud == "wedge":

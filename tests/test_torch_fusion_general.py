@@ -58,7 +58,8 @@ def _inputs(name, deg):
     size, pos, offset, scanner, ch, cols = WINDOWS[name]
     if offset is None:
         offset = [s // 2 for s in size]
-    st = state_from_numpy(np.full(size, TAU), np.zeros(size), pos, offset)
+    st = state_from_numpy(np.full(size, TAU), np.zeros(size), pos, offset,
+                          device="cpu")
     pts = box_room_cloud(6000, 800, 500, seed=3)
     pts = pts + np.asarray(scanner, np.int32) * RES
     R = torch.as_tensor(_rotation(deg))
@@ -166,7 +167,7 @@ def test_auto_fusion_takes_any_channel_count(channels):
         "map": {"max_distance": 0.6, "resolution": RES, "max_weight": 10},
         "lidar": {"channels": channels, "hresolution": 64}})
     st = state_from_numpy(np.full(size, TAU), np.zeros(size), [0, 0, 0],
-                          [s // 2 for s in size])
+                          [s // 2 for s in size], device="cpu")
     pts = torch.as_tensor(box_room_cloud(20000, 600, 400, seed=1))
     tfb.fuse_cloud(st, pts, torch.ones(len(pts), dtype=torch.bool),
                    np.eye(4), params=params, size=size, fusion="auto")

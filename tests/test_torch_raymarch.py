@@ -128,7 +128,8 @@ def fused():
             jax.lax, "fori_loop", _fori_op_by_op):
         eager = jt.tsdf_update(_jstate(), *jargs, **kw)
     jitted = jt.tsdf_update(_jstate(), *jargs, **kw)
-    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), POS, OFFSET)
+    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), POS, OFFSET,
+                          device="cpu")
     out = tt.tsdf_update(st, torch.as_tensor(pts), torch.as_tensor(mask),
                          torch.as_tensor(spos), torch.as_tensor(up), **kw)
     assert out is st                     # in place
@@ -161,7 +162,8 @@ def test_tsdf_update_accumulates_like_jax():
     kw = dict(size=SIZE, tau=TAU, max_weight=640, resolution=RES,
               max_steps=max_steps, max_isteps=max_isteps)
     js = _jstate()
-    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), POS, OFFSET)
+    st = state_from_numpy(np.full(SIZE, TAU), np.zeros(SIZE), POS, OFFSET,
+                          device="cpu")
     for spos in ((0, 0, 0), (1, 2, 0)):
         a = (jnp.asarray(pts), jnp.asarray(mask),
              jnp.asarray(spos, jnp.int32), jnp.asarray(_up(0.0)))

@@ -90,10 +90,10 @@ def test_register_cloud_packed_matches_jax(scene, gather_freeze, coarse,
     if exact:
         jf = jreg.precompute_fields_packed2(st)
         tf = packed_fields_from_numpy(np.asarray(jf.plane_a),
-                                      np.asarray(jf.plane_b))
+                                      np.asarray(jf.plane_b), device="cpu")
     else:
         jf = jreg.precompute_fields_packed(st, tau=TAU)
-        tf = packed_fields_from_numpy(np.asarray(jf.plane))
+        tf = packed_fields_from_numpy(np.asarray(jf.plane), device="cpu")
     mask = np.ones(len(cloud), bool)
     mask[::13] = False
     kw = dict(size=SIZE, resolution=RES, tau=TAU, max_iterations=50,
@@ -121,7 +121,7 @@ def test_empty_cloud_returns_pretransform(scene):
     loop stops at once with the pretransform, like the JAX loop."""
     st, cloud = scene
     jf = jreg.precompute_fields_packed(st, tau=TAU)
-    tf = packed_fields_from_numpy(np.asarray(jf.plane))
+    tf = packed_fields_from_numpy(np.asarray(jf.plane), device="cpu")
     pert = _perturbation(1)
     pose, iters, err = treg.register_cloud_packed(
         tf, torch.as_tensor(np.asarray(st.pos)),

@@ -61,7 +61,8 @@ def scene():
             size=SIZE, tau=TAU, max_weight=32 * WEIGHT_RESOLUTION,
             resolution=RES, max_steps=steps[0], max_isteps=steps[1])
     tst = state_from_numpy(np.asarray(st.value), np.asarray(st.weight),
-                           np.asarray(st.pos), np.asarray(st.offset))
+                           np.asarray(st.pos), np.asarray(st.offset),
+                           device="cpu")
     # voxel-center snap + dedup, like the parity-mode preprocess
     cloud = np.unique(_walls(400, rng) // RES * RES + RES // 2,
                       axis=0).astype(np.int32)
@@ -110,7 +111,7 @@ def test_precompute_fields_random_ring_window():
     js = JState(value=jnp.asarray(v), weight=jnp.asarray(w),
                 pos=jnp.asarray([3, -2, 1], jnp.int32),
                 offset=jnp.asarray([4, 0, 8], jnp.int32))
-    ts = state_from_numpy(v, w, [3, -2, 1], [4, 0, 8])
+    ts = state_from_numpy(v, w, [3, -2, 1], [4, 0, 8], device="cpu")
     for a, b in zip(jreg.precompute_fields(js), treg.precompute_fields(ts)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
@@ -119,7 +120,8 @@ def test_precompute_fields_random_ring_window():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_jacobian_stats_fields_matches_jax(scene, normalize, seed):
     st, tst, jf, cloud = scene
-    tf = registration_fields_from_numpy(*(np.asarray(p) for p in jf))
+    tf = registration_fields_from_numpy(*(np.asarray(p) for p in jf),
+                                        device="cpu")
     pose = _perturbation(seed)
     mask = _mask(len(cloud))
     kw = dict(size=SIZE, resolution=RES, normalize_gradient=normalize)

@@ -127,9 +127,10 @@ def _packed(st, exact):
     if exact:
         jf = jreg.precompute_fields_packed2(st)
         return jf, packed_fields_from_numpy(np.asarray(jf.plane_a),
-                                            np.asarray(jf.plane_b))
+                                            np.asarray(jf.plane_b),
+                                            device="cpu")
     jf = jreg.precompute_fields_packed(st, tau=TAU)
-    return jf, packed_fields_from_numpy(np.asarray(jf.plane))
+    return jf, packed_fields_from_numpy(np.asarray(jf.plane), device="cpu")
 
 
 LM_KW = dict(size=SIZE, resolution=RES, tau=TAU, max_iterations=50,
@@ -185,7 +186,8 @@ def test_fields_loop_matches_jax(parity_scene, mode, iters):
     at JAX's iteration."""
     st, cloud = parity_scene
     jf = jreg.precompute_fields(st)
-    tf = registration_fields_from_numpy(*(np.asarray(p) for p in jf))
+    tf = registration_fields_from_numpy(*(np.asarray(p) for p in jf),
+                                        device="cpu")
     pert = _perturbation(1)
     mask = _mask(len(cloud))
     kw = dict(size=SIZE, resolution=RES, max_iterations=iters,
@@ -219,7 +221,7 @@ def chunk_problems(fast_scene, parity_scene):
         epsilon=0.03, it_weight_gradient=0.0, freeze_step_mm=float(RES))
     pst, pcloud = parity_scene
     pf = registration_fields_from_numpy(
-        *(np.asarray(p) for p in jreg.precompute_fields(pst)))
+        *(np.asarray(p) for p in jreg.precompute_fields(pst)), device="cpu")
     gn = treg.RegProblem(
         fields=pf, pos=_t(pst.pos), offset=_t(pst.offset), points=_t(pcloud),
         mask=_t(_mask(len(pcloud))), size=SIZE, resolution=RES, tau=TAU,
@@ -281,7 +283,7 @@ def trace_problems(fast_scene, parity_scene):
             fields=tf, layout=layout, coarse_iterations=3, split=True, **lm)
     pst, pcloud = parity_scene
     pf = registration_fields_from_numpy(
-        *(np.asarray(p) for p in jreg.precompute_fields(pst)))
+        *(np.asarray(p) for p in jreg.precompute_fields(pst)), device="cpu")
     for mode in ("parity", "fast"):
         out["gn_" + mode] = treg.RegProblem(
             fields=pf, pos=_t(pst.pos), offset=_t(pst.offset),

@@ -19,20 +19,31 @@ tests/test_sharded_app.py's and test_distributed.py's.  Tolerances:
   agreement below);
 * featsense: the TSDF back end does not feed the poses, so the world-2
   mesh back end gives the single-GPU app's refined poses and window bit
-  for bit.
+  for bit;
+* the live monitor (period 0: a snapshot every scan): at a world of 1 the
+  single-GPU app's snapshots, path and status bit for bit; at a world of
+  2 every snapshot is the ranks' slabs gathered in rank order, both ranks'
+  monitors hold the same path and status, and the poses are the
+  unmonitored run's bits (also with a monitor on rank 0 only); status
+  counts and shift positions equal JAX's monitored sharded app's, and its
+  last window agrees with JAX's to the merged-map test's share.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 import _torch_dist_worker as w
 from warpsense_tpu.core.config import Params as JParams
+from warpsense_tpu.obs.live import LiveMonitor as JLiveMonitor
 from warpsense_tpu.parallel.sharded import make_mesh as jmake_mesh
 from warpsense_tpu.pipeline.warpsense_sharded import \
     ShardedWarpsenseApp as JShardedApp
 from warpsense_tpu_torch.core.config import Params
 from warpsense_tpu_torch.eval.merge_maps import merge
 from warpsense_tpu_torch.map.global_map import GlobalMap
+from warpsense_tpu_torch.obs.live import LiveMonitor
 from warpsense_tpu_torch.parallel.sharded import make_mesh
 from warpsense_tpu_torch.pipeline import warpsense_sharded as ws
 from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
@@ -75,19 +86,33 @@ def world1(tmp_path_factory, walk):
 
 
 @pytest.fixture(scope="module")
-def jax_traj(walk, tmp_path_factory):
+def jax_run(walk, tmp_path_factory):
+    """JAX's ShardedWarpsenseApp on the walk (a 4-device mesh, synchronous
+    shift) with a JAX LiveMonitor (period 0): poses, the monitor's status,
+    shift positions and map snapshots."""
     _, scans = walk
+    mon = JLiveMonitor(map_snapshot_period_s=0.0)
+    snaps, shifts = [], []
+    mon.subscribe("map", snaps.append)
+    mon.subscribe("shift", lambda pos: shifts.append(np.asarray(pos)))
     app = JShardedApp(JParams.from_dict(w.app_config(0.25)),
                       mesh=jmake_mesh(4),
                       map_path=tmp_path_factory.mktemp("jax") / "j.h5",
                       capacity=8192,
-                      window_size=w.WINDOW, sync_shift=True)
+                      window_size=w.WINDOW, sync_shift=True, monitor=mon)
     try:
         traj = np.stack([app.cloud_callback(s, float(i))
                          for i, s in enumerate(scans)])
     finally:
         app.terminate()
-    return traj
+    return dict(traj=traj, status=json.loads(mon.status_json()),
+                shifts=np.asarray(shifts, np.int64).reshape(-1, 3),
+                snaps=[[np.asarray(x) for x in s] for s in snaps])
+
+
+@pytest.fixture(scope="module")
+def jax_traj(jax_run):
+    return jax_run["traj"]
 
 
 def _truth_err(traj, truth):
@@ -250,8 +275,8 @@ def test_fields_cached_across_scans(tmp_path, walk, monkeypatch):
 
 def test_attitude_fallback_and_limits(monkeypatch):
     """Beyond the tilt budget the sharded fusion bins with the sensor
-    attitude (K1's general sweep); parity mode, a coarse phase, a monitor
-    and an x extent that does not divide the world raise."""
+    attitude (K1's general sweep); the app takes a monitor; parity mode, a
+    coarse phase and an x extent that does not divide the world raise."""
     from warpsense_tpu_torch.io.synthetic import BoxWorld, render_scan
     app = ws.ShardedWarpsenseApp(
         Params.from_dict(w.app_config()), mesh=make_mesh("cpu"),
@@ -294,12 +319,134 @@ def test_attitude_fallback_and_limits(monkeypatch):
     with pytest.raises(ValueError, match="coarse_iterations"):
         ws.ShardedWarpsenseApp(Params.from_dict(cfg), mesh=make_mesh("cpu"),
                                in_memory_map=True)
-    with pytest.raises(ValueError, match="monitor"):
-        ws.ShardedWarpsenseApp(Params.from_dict(w.app_config()),
-                               mesh=make_mesh("cpu"), in_memory_map=True,
-                               monitor=object())
+    mon = LiveMonitor()
+    watched = ws.ShardedWarpsenseApp(Params.from_dict(w.app_config()),
+                                     mesh=make_mesh("cpu"),
+                                     in_memory_map=True, capacity=8192,
+                                     window_size=w.WINDOW, monitor=mon)
+    watched.cloud_callback(render_scan(world, np.eye(4), channels=w.APP_CH,
+                                       columns=w.APP_COLS), 0.0)
+    watched.terminate()
+    st = json.loads(mon.status_json())
+    assert st["scans"] == 1 and st["map_epoch"] == 1
     mesh2 = make_mesh("cpu")._replace(world=2)
     with pytest.raises(ValueError, match="divide"):
         ws.ShardedWarpsenseApp(Params.from_dict(w.app_config()),
                                mesh=mesh2, in_memory_map=True,
                                window_size=(161, 101, 41))
+
+
+# ------------------------------------------------------------ live monitor
+
+STATUS_KEYS = ("scans", "stamp", "position_m", "map_epoch", "shifts",
+               "last_shift_pos")
+PLANES = ("value", "weight", "pos", "offset")
+
+
+def _status(mon_or_json):
+    st = json.loads(mon_or_json if isinstance(mon_or_json, str)
+                    else mon_or_json.status_json())
+    return {k: st.get(k) for k in STATUS_KEYS}
+
+
+def test_world1_monitor_is_the_single_gpu_apps(world1, walk):
+    """At a world of one the sharded app publishes what the single-GPU app
+    publishes, bit for bit: each scan's snapshot (a copy, not the app's
+    planes), the path, the shifts, the status, the TUM path and the PLY;
+    and its poses are the unmonitored run's."""
+    _, scans = walk
+    runs = []
+    for sharded in (True, False):
+        mon, snaps, shifts = w.watched()
+        kw = dict(in_memory_map=True, capacity=8192, window_size=w.WINDOW,
+                  sync_shift=True, monitor=mon)
+        params = Params.from_dict(w.app_config(0.25))
+        app = (ws.ShardedWarpsenseApp(params, mesh=make_mesh("cpu"), **kw)
+               if sharded else
+               WarpsenseApp(params, fusion="projective-level",
+                            force_odd=False, device="cpu", **kw))
+        traj = np.stack([app.cloud_callback(s, float(i))
+                         for i, s in enumerate(scans)])
+        if sharded:
+            assert not np.shares_memory(snaps[-1].value,
+                                        app.state.value.numpy())
+        app.terminate()
+        runs.append((traj, mon, w.monitor_report(mon, snaps, shifts)))
+    (traj, mon, got), (_, single_mon, want) = runs
+    np.testing.assert_array_equal(traj, world1[0])
+    assert len(got["snap_value"]) == len(scans)
+    for k, v in want.items():
+        if k != "status":
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    np.testing.assert_array_equal(got["path"], traj.astype(np.float64))
+    assert len(got["shifts"]) >= 1
+    assert _status(mon) == _status(single_mon)
+    assert mon.tum_path() == single_mon.tum_path()
+    assert mon.map_ply_bytes() == single_mon.map_ply_bytes()
+
+
+def test_world2_monitor_snapshots_are_the_gathered_slabs(world2):
+    """Every rank's monitor receives, after each scan, the window gathered
+    from the ranks' slabs in rank order at that scan."""
+    ranks, _ = world2
+    for r in ranks:
+        assert len(r["mon_snap_value"]) == len(r["traj"])
+        for k in PLANES:
+            np.testing.assert_array_equal(r["mon_snap_" + k],
+                                          r["mon_window_" + k], err_msg=k)
+    assert int((ranks[0]["mon_snap_weight"][-1] != 0).sum()) > 1000
+
+
+def test_world2_monitors_hold_equal_paths_and_status(world2):
+    ranks, _ = world2
+    a, b = ranks
+    for k in ("path", "stamps", "shifts"):
+        np.testing.assert_array_equal(a["mon_" + k], b["mon_" + k])
+    np.testing.assert_array_equal(a["mon_path"],
+                                  a["traj"].astype(np.float64))
+    assert _status(str(a["mon_status"])) == _status(str(b["mon_status"]))
+    assert _status(str(a["mon_status"]))["map_epoch"] == len(a["traj"])
+
+
+def test_world2_monitor_keeps_poses_and_collectives(world2):
+    """The poses are the unmonitored run's bits, with a monitor on every
+    rank and on rank 0 only; without a monitor a scan calls no all-reduce,
+    with one a scan calls one (the snapshot decision) and a snapshot two
+    all-gathers (value and weight)."""
+    ranks, _ = world2
+    for r in ranks:
+        np.testing.assert_array_equal(r["mon_traj"], r["traj"])
+        np.testing.assert_array_equal(r["r0_traj"], r["traj"])
+        assert int(r["plain_all_reduce"]) == 0
+        n = len(r["traj"])
+        for run in ("mon", "r0"):
+            assert int(r[run + "_all_reduce"]) == n
+            assert int(r[run + "_all_gather"]) \
+                == int(r["plain_all_gather"]) + 2 * n
+    assert "r0_snap_value" not in ranks[1]
+    for k in PLANES:
+        np.testing.assert_array_equal(ranks[0]["r0_snap_" + k],
+                                      ranks[0]["mon_snap_" + k], err_msg=k)
+
+
+def test_world2_monitor_matches_jax_sharded_app(world2, jax_run):
+    """Status counts and shift positions are JAX's monitored sharded
+    app's on the same scans; each snapshot's weighted voxels are JAX's,
+    and their contents agree where the poses' float noise lets them (the
+    merged-map test's share; measured: all of them for four scans, then
+    0.99998 of 263,128)."""
+    got = world2[0][0]
+    status = _status(str(got["mon_status"]))
+    for k in ("scans", "map_epoch", "shifts", "last_shift_pos"):
+        assert status[k] == jax_run["status"][k], k
+    assert len(got["mon_snap_value"]) == len(jax_run["snaps"])
+    np.testing.assert_array_equal(got["mon_shifts"], jax_run["shifts"])
+    for i, (value, weight, pos, offset) in enumerate(jax_run["snaps"]):
+        np.testing.assert_array_equal(got["mon_snap_pos"][i], pos)
+        np.testing.assert_array_equal(got["mon_snap_offset"][i], offset)
+        mask = weight != 0
+        assert mask.sum() > 1000
+        np.testing.assert_array_equal(got["mon_snap_weight"][i] != 0, mask)
+        agree = float(((got["mon_snap_value"][i] == value)
+                       & (got["mon_snap_weight"][i] == weight))[mask].mean())
+        assert agree > 0.99, (i, agree)

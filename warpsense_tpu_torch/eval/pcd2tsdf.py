@@ -20,37 +20,52 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core.consts import MATRIX_RESOLUTION
+
+UP = np.array([0, 0, MATRIX_RESOLUTION], np.int64)   # the z axis
+
+
+def tsdf_volume(pts_mm: np.ndarray, *, tau: int, resolution: int, size,
+                max_weight_scaled: int, max_steps: int, max_isteps: int,
+                device: torch.device):
+    """(state, ms): the ray march (``ops/tsdf.tsdf_update``) of ``pts_mm``
+    from the origin into a fresh window on ``device``, and its host time
+    to the end of the work."""
+    from ..map.local_map import create_state
+    from ..ops.tsdf import tsdf_update
+    state = create_state(size, tau, 0, device=device)
+    t0 = time.perf_counter()
+    tsdf_update(state, torch.as_tensor(pts_mm, dtype=torch.int32,
+                                       device=device),
+                torch.ones((len(pts_mm),), dtype=torch.bool, device=device),
+                torch.zeros(3, dtype=torch.int32, device=device),
+                torch.as_tensor(UP, dtype=torch.int32, device=device),
+                size=tuple(state.value.shape), tau=tau,
+                max_weight=max_weight_scaled, resolution=resolution,
+                max_steps=max_steps, max_isteps=max_isteps)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return state, (time.perf_counter() - t0) * 1000
+
 
 def run(cloud_mm: np.ndarray, *, tau: int = 600, resolution: int = 64,
         size=(201, 201, 121), max_weight_scaled: int = 32 * 64,
         host_compare_points: int = 256, out_dir: str | None = None,
         device="cuda") -> dict:
-    from ..core.consts import MATRIX_RESOLUTION
     from ..map.global_map import GlobalMap
-    from ..map.local_map import LocalMap, create_state
-    from ..ops.tsdf import plan_raymarch, tsdf_update
+    from ..map.local_map import LocalMap
+    from ..ops.tsdf import plan_raymarch
     from ..ops.tsdf_reference import update_tsdf_reference
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
-    up = np.array([0, 0, MATRIX_RESOLUTION], np.int64)
     max_range = int(np.max(np.linalg.norm(cloud_mm, axis=1))) + tau
     ms, mi = plan_raymarch(tau, resolution, max_range)
 
     def device_volume(pts):
-        state = create_state(size, tau, 0, device=dev)
-        t0 = time.perf_counter()
-        tsdf_update(state, torch.as_tensor(pts, dtype=torch.int32,
-                                           device=dev),
-                    torch.ones((len(pts),), dtype=torch.bool, device=dev),
-                    torch.zeros(3, dtype=torch.int32, device=dev),
-                    torch.as_tensor(up, dtype=torch.int32, device=dev),
-                    size=tuple(state.value.shape), tau=tau,
-                    max_weight=max_weight_scaled, resolution=resolution,
-                    max_steps=ms, max_isteps=mi)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return state, (time.perf_counter() - t0) * 1000
+        return tsdf_volume(pts, tau=tau, resolution=resolution, size=size,
+                           max_weight_scaled=max_weight_scaled, max_steps=ms,
+                           max_isteps=mi, device=dev)
 
     n = len(cloud_mm)
     device_volume(cloud_mm)                       # warm-up
@@ -71,7 +86,7 @@ def run(cloud_mm: np.ndarray, *, tau: int = 600, resolution: int = 64,
         lm = LocalMap(size, gm)
         t0 = time.perf_counter()
         update_tsdf_reference(sub.astype(np.int64), np.zeros(3, np.int64),
-                              up, lm, tau=tau, max_weight=max_weight_scaled,
+                              UP, lm, tau=tau, max_weight=max_weight_scaled,
                               resolution=resolution)
         host_ms = (time.perf_counter() - t0) * 1000
         gm.close()

@@ -3,7 +3,8 @@
 The system has no weights: its state is the map window, the registration
 fields and the featsense odometry (feature maps and pose).  These helpers
 put the port into the state a JAX run reached (arrays come in as numpy,
-e.g. ``np.asarray(jax_state.value)``).  The
+e.g. ``np.asarray(jax_state.value)``), on the card unless the caller asks
+for the CPU (``device="cpu"``; a CUDA device without a GPU raises).  The
 global map needs no helper: both packages read and write the same HDF5
 schema, so a map file the JAX app persisted resumes in the port.
 """
@@ -16,15 +17,16 @@ from .core.config import Params
 from .frontends.featsense.odometry import FeatureMapState, OdomEstimation
 from .map.local_map import LocalMapState
 from .ops.registration import PackedFields, PackedFields2, RegistrationFields
+from .utils.device import resolve_device
 
 
 def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype, copy=True),
-                           device=device)
+                           device=resolve_device(device))
 
 
 def state_from_numpy(value, weight, pos, offset,
-                     device="cpu") -> LocalMapState:
+                     device="cuda") -> LocalMapState:
     """A ``LocalMapState`` on ``device`` from numpy (or array-like) planes
     and ring origin."""
     return LocalMapState(value=_t(value, np.int16, device),
@@ -33,7 +35,7 @@ def state_from_numpy(value, weight, pos, offset,
                          offset=_t(offset, np.int32, device))
 
 
-def packed_fields_from_numpy(plane_or_a, plane_b=None, device="cpu"):
+def packed_fields_from_numpy(plane_or_a, plane_b=None, device="cuda"):
     """``PackedFields`` from one int32 plane, or ``PackedFields2`` from
     the two exact planes."""
     if plane_b is None:
@@ -43,14 +45,15 @@ def packed_fields_from_numpy(plane_or_a, plane_b=None, device="cpu"):
 
 
 def registration_fields_from_numpy(vw, gxy, gz,
-                                   device="cpu") -> RegistrationFields:
+                                   device="cuda") -> RegistrationFields:
     """Parity-mode ``RegistrationFields`` from its three int32 planes."""
     return RegistrationFields(vw=_t(vw, np.int32, device),
                               gxy=_t(gxy, np.int32, device),
                               gz=_t(gz, np.int32, device))
 
 
-def feature_map_from_numpy(points, mask, device="cpu") -> FeatureMapState:
+def feature_map_from_numpy(points, mask,
+                           device="cuda") -> FeatureMapState:
     """A featsense ``FeatureMapState`` (float32 points, bool mask)."""
     return FeatureMapState(points=_t(points, np.float32, device),
                            mask=_t(mask, bool, device))
@@ -58,7 +61,7 @@ def feature_map_from_numpy(points, mask, device="cpu") -> FeatureMapState:
 
 def odom_estimation_from_numpy(edge_map, surf_map, odom, last_odom,
                                optimization_count: int, initialized: bool,
-                               device="cpu", **kwargs) -> OdomEstimation:
+                               device="cuda", **kwargs) -> OdomEstimation:
     """An ``OdomEstimation`` (built with ``kwargs``) in a given state:
     ``edge_map``/``surf_map`` are (points, mask) pairs, ``odom`` and
     ``last_odom`` 4x4 poses in meters."""

@@ -17,9 +17,11 @@ tsdf_mapping.cpp:134).  This module is that role without ROS:
   JSON, the TUM path, and the current map window as PLY; ``curl
   localhost:PORT/status`` is the new ``rostopic echo``.
 
-``WarpsenseApp`` accepts ``monitor=`` (pipeline/warpsense.py) and calls
-``publish_*``; everything here is rate-limited and runs on the caller's
-thread except the HTTP server (daemon thread).
+``WarpsenseApp`` and ``ShardedWarpsenseApp`` accept ``monitor=``
+(pipeline/warpsense.py, pipeline/warpsense_sharded.py) and call
+``publish_*``; the sharded app publishes the whole window, gathered from
+its ranks' slabs as host arrays.  Everything here is rate-limited and runs
+on the caller's thread except the HTTP server (daemon thread).
 """
 from __future__ import annotations
 
@@ -81,19 +83,31 @@ class LiveMonitor:
                 self.status["scan_ms"] = round(float(timing_ms), 2)
         self._emit("pose", stamp, pose)
 
-    def publish_map(self, state, *, resolution: int, tau: int) -> None:
+    def map_due(self) -> bool:
+        """Whether ``publish_map`` would take a snapshot now: the first one,
+        then one each ``map_snapshot_period_s``."""
+        with self._lock:
+            return self._due(time.time())
+
+    def _due(self, now: float) -> bool:          # under self._lock
+        return (self._map_state is None or now - self._last_map_snapshot
+                >= self._map_snapshot_period_s)
+
+    def publish_map(self, state, *, resolution: int, tau: int,
+                    force: bool = False) -> None:
         """Map-window snapshot (the reference's marker cloud,
         visualization/map.h:14-121); stored by reference, rendered lazily
         by consumers.
 
-        Rate-limited (``map_snapshot_period_s``), and the stored snapshot
-        is a COPY of the state's tensors: the pipelines fuse and shift
-        their map in place, so holding the caller's tensors would show
-        consumers a map that changes under them."""
+        Rate-limited (``map_due``) unless ``force`` (the sharded app takes
+        that decision for all its ranks at once), and the stored snapshot
+        is a COPY of the state's planes (tensors or host arrays): the
+        pipelines fuse and shift their map in place, so holding the
+        caller's planes would show consumers a map that changes under
+        them."""
         now = time.time()
         with self._lock:
-            if now - self._last_map_snapshot < self._map_snapshot_period_s \
-                    and self._map_state is not None:
+            if not (force or self._due(now)):
                 return
             self._last_map_snapshot = now
         snap = type(state)(

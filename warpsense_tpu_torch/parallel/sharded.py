@@ -170,6 +170,18 @@ def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.cat([p.cpu() for p in parts]).view(t.dtype)
 
 
+def any_rank(mesh: Mesh, flag: bool) -> bool:
+    """True on every rank when ``flag`` is True on any rank: one all-reduce
+    (MAX) of one integer (in host memory for gloo; on the device for NCCL,
+    whose read syncs); ``flag`` itself without a group."""
+    if mesh.group is None:
+        return bool(flag)
+    dev = "cpu" if dist.get_backend(mesh.group) == "gloo" else mesh.device
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return bool(t.item())
+
+
 def _rows_gather(mesh: Mesh, rows: torch.Tensor):
     """(rows_all, gather): the world's rows of statistics, rank-major, and
     the collective that fills them from every rank's ``rows``.  Without a

@@ -17,6 +17,13 @@ the same scans:
   slab, scoped to its rows (``x_rows``): each rank evicts, loads and
   persists only its rows, into its own map file ``<map>.p<rank>.h5``
   (``eval/merge_maps.py`` folds them into one);
+* the live monitor (``monitor=``, on any ranks): each rank with one
+  publishes the pose after every scan and each shift before it happens;
+  whether a map snapshot is due is decided for all ranks at once (each
+  monitor's rate limit, one all-reduce), and a due snapshot is the whole
+  window gathered from the slabs in rank order, published on every rank
+  with a monitor.  Without a monitor on any rank a scan calls no
+  collective for it;
 * persistence, resume, the IMU pretransform and profiling are
   ``WarpsenseApp``'s.
 """
@@ -30,7 +37,9 @@ import torch
 
 from ..core.config import Params
 from ..map.local_map import make_odd
-from ..parallel.sharded import (make_mesh, precompute_fields_packed_sharded,
+from ..parallel.distributed import gather_state
+from ..parallel.sharded import (any_rank, make_mesh,
+                                precompute_fields_packed_sharded,
                                 register_cloud_packed_sharded, shard_state,
                                 slab_rows, tsdf_update_projective_sharded)
 from .fusion_backend import grid_rotation_for
@@ -46,8 +55,9 @@ class ShardedWarpsenseApp(WarpsenseApp):
     The window's x extent is rounded UP to a multiple of the world size
     (an even extent spans the floor convention of map/local_map.py); y
     and z are forced odd like the reference.  Fast mode only
-    (``registration.mode == "fast"``, ``coarse_iterations == 0``); the
-    live ``monitor`` is not supported.
+    (``registration.mode == "fast"``, ``coarse_iterations == 0``).  Every
+    rank must construct the app at the same point (with a group, one
+    collective finds whether any rank has a ``monitor``).
 
     ``sync_shift=False`` (the default) at a world of one overlaps the
     window shift with the following scans through the staged shift
@@ -70,8 +80,6 @@ class ShardedWarpsenseApp(WarpsenseApp):
             raise ValueError(
                 "coarse_iterations is not supported by the sharded "
                 "registration (register_cloud_packed_sharded); set it to 0")
-        if kwargs.get("monitor") is not None:
-            raise ValueError("ShardedWarpsenseApp does not support monitor")
         if window_size is None:
             sv = params.map.size_voxels
             window_size = (-(-sv[0] // n) * n, make_odd(sv[1]),
@@ -90,11 +98,31 @@ class ShardedWarpsenseApp(WarpsenseApp):
         super().__init__(params, map_path=map_path, force_odd=False,
                          window_size=window_size, sync_shift=sync_shift,
                          device=self.mesh.device, **kwargs)
+        # the same on every rank: whether any rank publishes
+        self._monitored = any_rank(self.mesh, self.monitor is not None)
 
     # ----------------------------------------------------------- device seams
     def _device_state(self):
         """This rank's slab of the host window on its device."""
         return shard_state(self.local_map.state, self.mesh)
+
+    def _publish(self, stamp: float) -> None:
+        """Pose to this rank's monitor; the whole window to every rank's
+        monitor when any rank's rate limit says a snapshot is due.  Every
+        rank enters the same collectives at the same scans: the decision is
+        one all-reduce, the snapshot one gather of value and weight."""
+        if not self._monitored:
+            return
+        mon = self.monitor
+        if mon is not None:
+            mon.publish_pose(stamp, self.pose)
+        if not any_rank(self.mesh, mon is not None and mon.map_due()):
+            return
+        window = gather_state(self.state, self.mesh)
+        if mon is not None:
+            m = self.params.map
+            mon.publish_map(window, resolution=m.resolution, tau=m.tau,
+                            force=True)
 
     def _register(self, pts, mask, pretransform, prof=None) -> np.ndarray:
         m = self.params.map
@@ -154,6 +182,8 @@ class ShardedWarpsenseApp(WarpsenseApp):
         self._pre_shift_pose = self.last_shift_pose
         self.last_shift_pose = self.pose.copy()
         new_pos = np.floor(self.pose[:3, 3] / m.resolution).astype(np.int64)
+        if self.monitor is not None:
+            self.monitor.publish_shift(new_pos)   # the skeleton publish
         if self.mesh.world == 1 and not self._sync_shift:
             self.local_map.attach_device(self.state)
             self._shift_plan = self.local_map.begin_shift(new_pos)
