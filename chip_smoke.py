@@ -49,13 +49,20 @@ Phases (each raises on failure; nothing falls back to the CPU):
    header read); then the loop kernel timed per registration and per
    iteration, beside its device time, the empty cluster loop and its
    bound, and the plain versions, an empty kernel and
-   solve_ex on one 6x6 system.  Then the sharded loop at a world of one
-   (no group; K3 as shard_stats_kernel, K4 as shard_step_kernel, CHUNK
-   iterations enqueued between two header reads) from REGLOOP's starts:
-   its end state, header and every traced row equal to the loop kernel's
-   to the bit, ceil(iterations / CHUNK) syncs (sync debug mode) and CHUNK
-   launches of each kernel a read; then its time a registration and its
-   kernels' device time an iteration beside the bound.  Every
+   solve_ex on one 6x6 system.  Then SHARDLOOP, the sharded loop at a
+   world of one (no group; an iteration one launch of shard_iter_kernel,
+   K4 of the iteration before then K3, CHUNK of them between two header
+   reads) from REGLOOP's starts, on a fresh mesh for each start: its
+   first registration launched from the host, the second replayed from
+   its captured chunk (a CUDA graph, captured once): its end state,
+   header and every traced row equal to the loop kernel's to the bit,
+   shard_reads(iterations) syncs (sync debug mode), CHUNK launches a read
+   and from the graph one replay a read; shard_iter_kernel against its
+   plain version (fused_iteration_plain) at the first FUSED_ITERATIONS
+   traced carries of each problem (the new carry to the bit, the rows
+   within REGLOOP["k3_rtol"], the slot and rows it read unchanged); then
+   its time a registration (events and host clock, the graph and a fresh
+   mesh's host launches) and its device time an iteration beside the bound.  Every
    registration of the apps below is one launch of the loop kernel and one
    header read (checked); each app prints its registrations' iterations,
    host syncs and loop time;
@@ -110,9 +117,12 @@ Phases (each raises on failure; nothing falls back to the CPU):
    refuses two ranks on one device), the window 626 x 625 x 235 (313 x-rows
    a rank): the same pose on every rank after every scan, ATE below APP's
    bound, K1 launched on every rank once per fused scan and K2 launched,
-   the sharded loop's kernels (shard_stats_kernel, shard_step_kernel)
-   CHUNK times a header read on every rank (each rank prints its
-   [registration sharded] report); the rank's last registration run again
+   the sharded loop's kernel (shard_iter_kernel) CHUNK times a header
+   read on every rank, over NCCL the chunk captured once and replayed
+   from the second registration on (each rank prints its
+   [registration sharded] report: launches an iteration, replays,
+   captures, header reads, a torch.profiler table of one registration's
+   host time); the rank's last registration run again
    traced, every traced step replayed by the plain step to the bit, the
    rank's own rows of every traced iteration (its slab's statistics)
    against reg_stats_plain on its slab (c equal, H / g / e within
@@ -121,7 +131,7 @@ Phases (each raises on failure; nothing falls back to the CPU):
    mismatches); each rank's spans, peak memory and its gloo staging (halo
    exchange, the rows' all-gather); then an NCCL group of one rank on
    APP's 10 scans, each pose equal to the single-GPU WarpsenseApp's at the
-   same window and settings to the bit, at most ceil(iterations / CHUNK)
+   same window and settings to the bit, at most shard_reads(iterations)
    syncs a registration (sync debug mode), its traced registration
    replayed; after each rank's counts were read, the same scans again
    with a LiveMonitor on every rank (the gloo ranks at a rate limit that
@@ -138,8 +148,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
 
 Every phase prints its seconds.  Each path's kernel launches are counted
 from 0 just before it runs; K1's also by sweep (general_launches_by_path:
-the calls that ran the general sweep); K3's and K4's on the sharded paths
-as shard_stats_kernel and shard_step_kernel (sharded_launches_by_path).
+the calls that ran the general sweep); the sharded paths' K4 + K3 as
+shard_iter_kernel (its own entry, shard_iter_K4K3).
 
 The last three lines are one JSON object describing the kernels, the
 card's name and power limit as nvidia-smi prints them, and
@@ -337,6 +347,9 @@ K2_LAUNCHES = 10
 # against their largest entry, c exact); K4 and its plain version run the
 # same float32 operations (every traced step equal to the bit); the loops:
 # equal iterations, PARITY_POSE_BOUND_MM and 1e-4 rad.
+# SHARDLOOP (b) holds shard_iter_kernel to its plain version at this many
+# traced iterations of each REGLOOP problem (parity's run to 200)
+FUSED_ITERATIONS = 8
 REGLOOP = dict(seed=9, poses=3, rot_deg=1.0, trans_mm=141.0,
                coarse_iterations=3, lm_max_iterations=50,
                near_mm=((8.0, -6.0, 4.0), (20.0, 10.0, -15.0)),
@@ -1319,40 +1332,58 @@ def time_plain(torch, probs, poses) -> dict:
     A = torch.eye(6, device=dev) * 2.0 + 0.1
     b = torch.ones(6, device=dev)
     out["solve_ex_ms"] = time_ms(torch, lambda: torch.linalg.solve_ex(A, b))
+    # the sharded iteration's plain version on the card: the step on the
+    # fast app's problem's first rows, then the next statistics
+    prob = probs["packed"]._replace(coarse_iterations=0, split=False)
+    src = torch.zeros(treg.CARRY_LEN, device=dev)
+    treg.init_state(prob, poses[0], dev, out=src[:treg.STATE_LEN])
+    src[treg.PENDING] = 1.0
+    rows = treg.reg_stats_plain(src[:treg.STATE_LEN], prob, {})
+    dst = torch.zeros_like(src)
+    row = torch.zeros_like(rows)
+    out["fused_plain_ms"] = time_ms(torch, lambda: treg.fused_iteration_plain(
+        src, dst, rows, row, prob, {}), reps=5)
     log("[time plain]", json.dumps(out))
     return out
 
 
 def check_shard_loops(torch, probs, poses) -> dict:
     """SHARDLOOP (a): the sharded loop at a world of one (no group) from
-    each of REGLOOP's starts, traced, against the loop kernel's traced
-    registration from the same start: end state, header and every trace
-    row equal to the bit; its synchronizing operations (the header reads:
-    ceil(iterations / CHUNK)) and each kernel's launches (CHUNK a read)."""
+    each of REGLOOP's starts, traced, on a fresh mesh: its first
+    registration launched from the host, the second from its captured
+    chunk, each against the loop kernel's traced registration from the
+    same start: end state, header and every trace row equal to the bit;
+    its synchronizing operations (the header reads:
+    ``shard_reads(iterations)``), its kernel's launches (CHUNK a read: one
+    an iteration) and, from the graph, one replay a read and one
+    capture."""
     from warpsense_tpu_torch.kernels import registration as kreg
     from warpsense_tpu_torch.ops import registration as treg
     from warpsense_tpu_torch.parallel.sharded import (
         make_mesh, run_registration_sharded)
-    mesh = make_mesh(poses[0].device)
     report = {}
     for name, prob in probs.items():
-        run_registration_sharded(prob, poses[0], mesh)          # warm-up
         runs, where = [], {}
         for j, pose in enumerate(poses):
             st, head, trace, _ = loop_traced(torch, prob, pose)
-            strace = torch.zeros_like(trace)
-            before = (kreg.shard_stats.launches, kreg.shard_step.launches)
-            (sst, shead), syncs = count_syncs(
-                torch, lambda: run_registration_sharded(
-                    prob, pose, mesh, trace=strace), where)
             n = int(head[treg.S_I])
-            runs.append(dict(
-                pose=j, iterations=n, shard_iterations=int(shead[treg.S_I]),
-                bit_equal=bool(torch.equal(sst, st) and shead == head
-                               and torch.equal(strace, trace)),
-                syncs=syncs, reads=-(-n // treg.CHUNK),
-                stats_launches=kreg.shard_stats.launches - before[0],
-                step_launches=kreg.shard_step.launches - before[1]))
+            mesh = make_mesh(pose.device)
+            for replayed in (False, True):
+                strace = torch.zeros_like(trace)
+                before = (kreg.shard_iter.launches, kreg.shard_iter.replays,
+                          kreg.shard_iter.captures)
+                (sst, shead), syncs = count_syncs(
+                    torch, lambda: run_registration_sharded(
+                        prob, pose, mesh, trace=strace), where)
+                runs.append(dict(
+                    pose=j, replayed=replayed, iterations=n,
+                    shard_iterations=int(shead[treg.S_I]),
+                    bit_equal=bool(torch.equal(sst, st) and shead == head
+                                   and torch.equal(strace, trace)),
+                    syncs=syncs, reads=treg.shard_reads(n),
+                    launches=kreg.shard_iter.launches - before[0],
+                    replays=kreg.shard_iter.replays - before[1],
+                    captures=kreg.shard_iter.captures - before[2]))
         report[name] = runs
         log(f"[SHARDLOOP {name}]", json.dumps(dict(runs=runs,
                                                    syncs_at=where)))
@@ -1361,59 +1392,167 @@ def check_shard_loops(torch, probs, poses) -> dict:
                 raise AssertionError(f"the sharded loop at a world of one "
                                      f"is not the loop kernel's ({name}): "
                                      f"{r}")
-            if r["syncs"] != r["reads"] or r["stats_launches"] != \
-                    r["step_launches"] or r["stats_launches"] != \
-                    r["reads"] * treg.CHUNK:
+            if r["syncs"] != r["reads"] or r["launches"] != \
+                    r["reads"] * treg.CHUNK or r["replays"] != (
+                        r["reads"] if r["replayed"] else 0):
                 raise AssertionError(f"the sharded loop did not read its "
                                      f"header once a chunk of CHUNK "
                                      f"launches ({name}; at {where}): {r}")
+            if r["captures"] != int(r["replayed"]):
+                raise AssertionError(f"the chunk of {name} was not captured "
+                                     f"once, at a mesh's second "
+                                     f"registration: {r}")
     return report
 
 
+def check_fused_kernel(torch, probs, poses) -> dict:
+    """SHARDLOOP (b): shard_iter_kernel against its plain version
+    (``fused_iteration_plain`` on the card, the same carry slot and rows)
+    at the carries of the loop kernel's traced registration from the first
+    start, its first FUSED_ITERATIONS iterations in order (so both gather
+    their freeze caches at the same carries): the first with no rows
+    pending (statistics only), then each traced carry with its traced rows
+    pending (the step, then the next statistics), launched at parity 0
+    and 1.  The new carry slot equal to the plain version's and to the
+    next traced carry, to the bit; the slot and rows read unchanged (the
+    double buffer); the rows' sum within REGLOOP["k3_rtol"] of the plain
+    row, c equal.  Returns each problem's worst relative error and the
+    carries that differ."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.ops import registration as treg
+    dev = poses[0].device
+    out = {}
+    for name, prob in probs.items():
+        st, head, trace, _ = loop_traced(torch, prob, poses[0])
+        n = min(int(head[treg.S_I]), FUSED_ITERATIONS)
+        bufs = kreg.shard_buffers(dev, 1, shared=True)
+        plan = kreg.shard_plan(bufs, prob)
+        cache: dict = {}
+        worst, differ, kept = 0.0, [], True
+        for i in range(n):
+            for parity in (0, 1):
+                src = torch.zeros(treg.CARRY_LEN, device=dev)
+                rows_in = torch.zeros((kreg.CLUSTER, treg.PARTIALS),
+                                      device=dev)
+                if i == 0:
+                    src[:treg.STATE_LEN] = trace[0, :treg.STATE_LEN]
+                else:
+                    src[:treg.STATE_LEN] = trace[i - 1, :treg.STATE_LEN]
+                    src[treg.PENDING] = 1.0
+                    rows_in = trace[i - 1, treg.STATE_LEN:].reshape(
+                        kreg.CLUSTER, treg.PARTIALS).clone()
+                bufs.carry[parity].copy_(src)
+                bufs.rows[parity].copy_(rows_in)
+                bufs.carry[1 - parity].fill_(-1.0)
+                kreg.shard_iter(plan, parity)
+                want = torch.full((treg.CARRY_LEN,), -1.0, device=dev)
+                row = torch.zeros((1, treg.PARTIALS), device=dev)
+                treg.fused_iteration_plain(src.clone(), want, rows_in, row,
+                                           prob, cache)
+                torch.cuda.synchronize()
+                got = bufs.carry[1 - parity]
+                kept = kept and bool(torch.equal(bufs.carry[parity], src)
+                                     and torch.equal(bufs.rows[parity],
+                                                     rows_in))
+                if not (torch.equal(got[:treg.PENDING + 1],
+                                    want[:treg.PENDING + 1])
+                        and torch.equal(got[:treg.STATE_LEN],
+                                        trace[i, :treg.STATE_LEN])):
+                    differ.append((i, parity))
+                g = treg.sum_partials(bufs.rows[1 - parity]).double()
+                w = row[0].double()
+                if g[28] != w[28]:
+                    differ.append((i, parity, "c"))
+                for lo, hi in ((0, 21), (21, 27), (27, 28)):
+                    worst = max(worst, float(
+                        (g[lo:hi] - w[lo:hi]).abs().max()
+                        / max(float(w[lo:hi].abs().max()), 1e-30)))
+        out[name] = dict(iterations=n, max_rel_err=worst, differ=differ,
+                         double_buffer_kept=kept)
+        log(f"[fused kernel {name}]", json.dumps(out[name]))
+        if differ or not kept or worst > REGLOOP["k3_rtol"]:
+            raise AssertionError(f"shard_iter_kernel differs from its "
+                                 f"plain version ({name}): {out[name]}")
+    return out
+
+
 def time_shard_loops(torch, probs, poses) -> dict:
-    """SHARDLOOP (b): time_loops' problems through the sharded loop at a
+    """SHARDLOOP (c): time_loops' problems through the sharded loop at a
     world of one (no group) from the first pose: one registration between
-    CUDA events (``ms``, with its header reads), and the device time of
-    shard_stats_kernel and shard_step_kernel (torch.profiler), per
+    CUDA events from its captured chunk (``ms``) and, launched from the
+    host, a fresh mesh's first one (``ms_eager``: its buffers made, then
+    the host loop), the host clock of one after a sync, median of 11
+    (``host_ms``, ``host_ms_eager``), and the device time of
+    shard_iter_kernel (torch.profiler over the graph's replays), per
     registration and per iteration (every launch of the registration,
     those after the carry finished included), beside the bound of the
     same work: ``loop_cost`` of its trace with CLUSTER rows an iteration
-    plus the carry's and the rows' trips through device memory."""
+    plus the carry's trips through device memory (the state and its
+    PENDING flag read and written once an iteration) and the rows'
+    (written, then read).  On the fast app's problem also the operators
+    of one registration's host time (torch.profiler)."""
     from warpsense_tpu_torch.kernels.registration import CLUSTER
     from warpsense_tpu_torch.ops import registration as treg
     from warpsense_tpu_torch.parallel.sharded import (
         make_mesh, run_registration_sharded)
-    mesh = make_mesh(poses[0].device)
+    dev = poses[0].device
+    mesh = make_mesh(dev)
     timed = dict(packed_app=probs["packed"]._replace(coarse_iterations=0),
                  **probs)
-    names = ("shard_stats_kernel", "shard_step_kernel")
+    name_k = "shard_iter_kernel"
     out = {}
     for name, prob in timed.items():
         trace = torch.zeros((prob.max_iterations,
-                             treg.trace_width(CLUSTER)), device=poses[0].device)
+                             treg.trace_width(CLUSTER)), device=dev)
         st, head = run_registration_sharded(prob, poses[0], mesh,
                                             trace=trace)
         n = int(head[treg.S_I])
-        launches = -(-n // treg.CHUNK) * treg.CHUNK
+        launches = treg.shard_reads(n) * treg.CHUNK
+
+        def reg():
+            return run_registration_sharded(prob, poses[0], mesh)
+
+        def reg_eager():
+            return run_registration_sharded(prob, poses[0], make_mesh(dev))
         stats = trace_stats(prob, trace, n)
-        ms = time_ms(torch, lambda: run_registration_sharded(
-            prob, poses[0], mesh))
-        us = kernel_device_us(torch, lambda: run_registration_sharded(
-            prob, poses[0], mesh), names, reps=20)
-        # an iteration: the carry read by both launches and written by the
-        # step, this rank's rows written and read
+        ms = time_ms(torch, reg)
+        ms_eager = time_ms(torch, reg_eager)
+        host = {}
+        for key, fn in (("graph", reg), ("eager", reg_eager)):
+            t = []
+            for _ in range(11):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t.append((time.perf_counter() - t0) * 1e3)
+            host[key] = sorted(t)[5]
+        us = kernel_device_us(torch, reg, (name_k,), reps=20)
         row_bytes = CLUSTER * treg.PARTIALS * 4
         nbytes, ops = loop_cost(prob, stats["mode_by_iteration"],
                                 stats["valid"], rows=CLUSTER,
-                                iteration_bytes=3 * 4 * treg.STATE_LEN
+                                iteration_bytes=2 * 4 * (treg.STATE_LEN + 1)
                                 + 2 * row_bytes)
-        dev_ms = (us[names[0]] + us[names[1]]) * launches / 1e3
-        t = dict(iterations=n, launches=launches, ms=ms, device_ms=dev_ms,
-                 shard_stats_device_us_per_launch=us[names[0]],
-                 shard_step_device_us_per_launch=us[names[1]],
+        dev_ms = us[name_k] * launches / 1e3
+        t = dict(iterations=n, launches=launches, ms=ms, ms_eager=ms_eager,
+                 host_ms=host["graph"], host_ms_eager=host["eager"],
+                 device_ms=dev_ms, device_us_per_launch=us[name_k],
                  **bound(nbytes, ops, dev_ms))
         for key in ("ms", "device_ms", "bound_ms"):
             t[f"{key}_per_iteration"] = t[key] / max(n, 1)
+        if name == "packed_app":
+            from torch.profiler import ProfilerActivity, profile
+            reg()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                reg()
+                torch.cuda.synchronize()
+            ops_ = sorted(prof.key_averages(),
+                          key=lambda e: -e.cpu_time_total)
+            t["host_profile"] = [dict(
+                name=e.key[:60], count=e.count, host_us=e.cpu_time_total,
+                device_us=getattr(e, "self_device_time_total", 0))
+                for e in ops_[:12]]
         out[name] = t
         log(f"[time shard loop {name}]", json.dumps(t))
     return out
@@ -1452,11 +1591,13 @@ def run_regloop(torch, full_state, default_state, device) -> dict:
                times=time_loops(torch, probs, poses),
                plain=time_plain(torch, probs, poses),
                shard_loops=check_shard_loops(torch, probs, poses),
+               fused=check_fused_kernel(torch, probs, poses),
                shard_times=time_shard_loops(torch, probs, poses))
     runs = [r for rs in out["loops"].values() for r in rs]
     out["max_abs_err"] = dict(
         K3=max(max(r["H_rel"], r["g_rel"], r["e_rel"]) for r in runs),
-        K4=max(r["step_max_abs_err"] for r in runs))
+        K4=max(r["step_max_abs_err"] for r in runs),
+        fused=max(r["max_rel_err"] for r in out["fused"].values()))
     return out
 
 
@@ -1629,8 +1770,7 @@ def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
-                                                          shard_stats,
-                                                          shard_step)
+                                                          shard_iter)
     from warpsense_tpu_torch.ops.registration import \
         reset_registration_counts
     fusion_sweep_merge.launches = 0
@@ -1638,8 +1778,9 @@ def reset_launches() -> None:
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
     reg_loop.launches = 0
-    shard_stats.launches = 0
-    shard_step.launches = 0
+    shard_iter.launches = 0
+    shard_iter.replays = 0
+    shard_iter.captures = 0
     reset_registration_counts()
 
 
@@ -1647,22 +1788,24 @@ def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
     sweep), K2's ("fields", and its aligned copies "fields_staged"), the
     loop kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
-    ("shard_stats": K3, "shard_step": K4), and the registrations' counts:
+    ("shard_iter": its fused K4 + K3 iteration, launched from the host or
+    replayed in a captured chunk; "shard_replays" and "shard_captures"
+    count the chunk's graphs), and the registrations' counts:
     registrations, their iterations, header reads (host syncs) and host
     seconds."""
     from warpsense_tpu_torch.kernels.fields import fields_packed
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
-                                                          shard_stats,
-                                                          shard_step)
+                                                          shard_iter)
     from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
             "reg_loop": reg_loop.launches,
-            "shard_stats": shard_stats.launches,
-            "shard_step": shard_step.launches,
+            "shard_iter": shard_iter.launches,
+            "shard_replays": shard_iter.replays,
+            "shard_captures": shard_iter.captures,
             "registrations": run_registration.calls,
             "reg_iterations": run_registration.iterations,
             "reg_syncs": run_registration.syncs,
@@ -2421,7 +2564,7 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
             world * (CLUSTER if cuda else 1))), device=device)
         st, head = run_loop(prob, pretransform, mesh, trace=trace)
         _, differ, tests, err = treg.replay_trace(trace, st, prob)
-        # this rank's rows of each traced iteration (shard_stats_kernel on
+        # this rank's rows of each traced iteration (shard_iter_kernel on
         # its slab) against reg_stats_plain on the slab
         k = CLUSTER if cuda else 1
         stats = trace_stats(prob, trace, int(head[treg.S_I]),
@@ -2524,9 +2667,15 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
             # padded slab (4 planes through host memory) and one
             # iteration's all-gather of the rows (CLUSTER rows of 32
             # floats a rank, through host memory), host clock after a sync
+            from warpsense_tpu_torch.kernels.registration import \
+                shard_buffers
             halo, stats = [], []
-            _, gather = sh._rows_gather(mesh, torch.ones(
-                (CLUSTER, treg.PARTIALS), device=device))
+            bufs = shard_buffers(device, world)
+            bufs.rows.fill_(1.0)
+            rows_gather = sh.rows_gather(mesh, bufs)
+
+            def gather():
+                rows_gather(0)
             for _ in range(7):
                 sync()
                 t0 = time.perf_counter()
@@ -2581,15 +2730,17 @@ def _spawn_ranks(world, backend, cfg, out_dir):
 
 def shard_registration_report(rank: dict, name: str) -> dict:
     """One rank's ``[registration sharded]`` report: its registrations,
-    their iterations, the sharded loop's kernel launches, header reads
-    and loop time, each per registration, and the synchronizing
-    operations of each registration (sync debug mode)."""
+    their iterations, the sharded loop's kernel launches (one an
+    iteration of each chunk), its captured chunk's replays and captures,
+    header reads and loop time, each per registration, and the
+    synchronizing operations of each registration (sync debug mode)."""
     la = rank["launches"]
     n = la["registrations"]
     rep = dict(rank=rank["rank"], backend=rank["backend"], registrations=n,
                iterations=la["reg_iterations"],
-               shard_stats_launches=la["shard_stats"],
-               shard_step_launches=la["shard_step"],
+               shard_iter_launches=la["shard_iter"],
+               graph_replays=la["shard_replays"],
+               graph_captures=la["shard_captures"],
                header_reads=la["reg_syncs"], loop_kernel_launches=la[
                    "reg_loop"],
                syncs_by_registration=[r["syncs"] for r in
@@ -2601,30 +2752,36 @@ def shard_registration_report(rank: dict, name: str) -> dict:
     if n:
         rep.update(iterations_per_registration=rep["iterations"] / n,
                    header_reads_per_registration=rep["header_reads"] / n,
+                   launches_per_iteration=rep["shard_iter_launches"]
+                   / max(rep["iterations"], 1),
                    loop_ms_per_registration=la["reg_seconds"] * 1e3 / n)
     log(f"[registration {name}]", json.dumps(rep))
     return rep
 
 
 def check_sharded_rank(rank: dict, rep: dict) -> None:
-    """Every registration of the rank ran the sharded loop's kernels:
-    CHUNK launches of each a header read, no loop kernel; the traced
-    registration repeats the app's last and every step is the plain
-    step's."""
-    import math
-
-    from warpsense_tpu_torch.ops.registration import CHUNK
+    """Every registration of the rank ran the sharded loop's kernel: CHUNK
+    launches a header read (one an iteration of each chunk), its header
+    read ``shard_reads(iterations)`` times, no loop kernel; over NCCL the
+    first registration launched from the host, then the chunk captured
+    once and replayed once a read for every later one; over gloo no
+    graph; the traced registration repeats the app's last and every step
+    is the plain step's."""
+    from warpsense_tpu_torch.ops.registration import CHUNK, shard_reads
     n = rep["registrations"]
-    if not (n > 0 and n == len(rank["registrations"])
-            and rep["shard_stats_launches"] == rep["shard_step_launches"]
-            == CHUNK * rep["header_reads"] and rep["header_reads"] >= n
-            and rep["header_reads"] == sum(
-                math.ceil(r["iterations"] / CHUNK)
-                for r in rank["registrations"])
+    regs = rank["registrations"]
+    reads = [shard_reads(r["iterations"]) for r in regs]
+    graphs = ((1, sum(reads[1:])) if rank["backend"] == "nccl" and n > 1
+              else (0, 0))
+    if not (n > 0 and n == len(regs)
+            and rep["shard_iter_launches"] == CHUNK * rep["header_reads"]
+            and rep["header_reads"] == sum(reads)
+            and (rep["graph_captures"], rep["graph_replays"]) == graphs
             and rep["loop_kernel_launches"] == 0):
         raise AssertionError(f"rank {rank['rank']} ({rank['backend']}): "
-                             f"the sharded loop's kernels were not "
-                             f"launched CHUNK times a header read: {rep}")
+                             f"the sharded loop's kernel was not launched "
+                             f"CHUNK times a header read, or its chunk not "
+                             f"captured and replayed as planned: {rep}")
     t = rank["traced"]
     if t["steps_differ"] or t["steps_replayed"] != t["iterations"] \
             or not t["equal_to_app"]:
@@ -2642,11 +2799,9 @@ def check_sharded_rank(rank: dict, rep: dict) -> None:
 def run_sharded(torch, cfg):
     """ShardedWarpsenseApp over two gloo ranks on the card, then an NCCL
     group of one rank beside the single-GPU app, on APP's scans."""
-    import math
-
     import numpy as np
 
-    from warpsense_tpu_torch.ops.registration import CHUNK
+    from warpsense_tpu_torch.ops.registration import shard_reads
     out_dir = ROOT / "chiprun_out" / "sharded"
     ranks = _spawn_ranks(cfg["world"], cfg["backend"], cfg, out_dir)
     gt, _ = app_scans(cfg)
@@ -2687,7 +2842,7 @@ def run_sharded(torch, cfg):
         raise AssertionError("the NCCL rank of one is not the single-GPU "
                              "app's poses")
     over = [r for r in nccl["registrations"]
-            if r["syncs"] > math.ceil(r["iterations"] / CHUNK)]
+            if r["syncs"] > shard_reads(r["iterations"])]
     if over:
         raise AssertionError(f"an NCCL registration synchronized more than "
                              f"once a chunk: {over}")
@@ -2909,14 +3064,14 @@ def main() -> int:
 
     shard_app = regloop["shard_times"]["packed_app"]
 
-    def reg_entry(name, replaces, also, plain_ms, library_ms, shard):
+    def reg_entry(name, replaces, also, plain_ms, library_ms):
         """K3 or K4: both halves of one launch of the loop kernel, so both
         carry its time per iteration on the fast app's problem; on the
-        sharded paths each is a kernel of its own (``shard``: its launch
-        count's key, its kernel's name), whose device time an iteration on
-        the same problem at a world of one is beside."""
+        sharded paths both are halves of shard_iter_kernel (its own
+        entry), whose device time an iteration on the same problem at a
+        world of one is beside."""
         t = app_loop
-        key, kernel = shard
+        key, kernel = "shard_iter", "shard_iter_kernel"
         return {"name": name, "route": "cuda",
                 "source": "warpsense_tpu_torch/csrc/registration.cu",
                 "launched_as": "loop_kernel", "cluster": CLUSTER,
@@ -2943,7 +3098,7 @@ def main() -> int:
                 "sharded_launches_by_path": {
                     k: paths[k][key] for k in ("sharded", "sharded_nccl")},
                 "sharded_device_us_per_launch": shard_app[
-                    f"{key}_device_us_per_launch"],
+                    "device_us_per_launch"],
                 "sharded_loop": {k: shard_app[k] for k in (
                     "iterations", "launches", "ms_per_iteration",
                     "device_ms_per_iteration", "bound_ms_per_iteration",
@@ -2971,8 +3126,7 @@ def main() -> int:
                        "warpsense_tpu/ops/registration.py:454",
                        ["warpsense_tpu/ops/registration.py:106",
                         "warpsense_tpu/ops/registration.py:512"],
-                       plain["K3_plain_packed_ms"], None,
-                       ("shard_stats", "shard_stats_kernel")),
+                       plain["K3_plain_packed_ms"], None),
              loop=loop_times, shard_loop=regloop["shard_times"],
              # each SHARDED rank's traced rows on its own slab against
              # reg_stats_plain on that slab (relative, as max_abs_err)
@@ -2981,8 +3135,36 @@ def main() -> int:
                  for r in sharded["ranks"] + [sharded["nccl"]])),
         reg_entry("reg_step_K4", "warpsense_tpu/ops/registration.py:572",
                   ["warpsense_tpu/ops/registration.py:212"],
-                  plain["K4_plain_ms"], plain["solve_ex_ms"],
-                  ("shard_step", "shard_step_kernel")),
+                  plain["K4_plain_ms"], plain["solve_ex_ms"]),
+        {"name": "shard_iter_K4K3", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/registration.cu",
+         "launched_as": "shard_iter_kernel",
+         "replaces": "warpsense_tpu/parallel/sharded.py:397",
+         "also_replaces": ["warpsense_tpu/parallel/sharded.py:145"],
+         "launches": sum(paths[k]["shard_iter"]
+                         for k in ("sharded", "sharded_nccl")),
+         "launches_by_path": {k: paths[k]["shard_iter"]
+                              for k in ("sharded", "sharded_nccl")},
+         "graph_replays_by_path": {k: paths[k]["shard_replays"]
+                                   for k in ("sharded", "sharded_nccl")},
+         "graph_captures_by_path": {k: paths[k]["shard_captures"]
+                                    for k in ("sharded", "sharded_nccl")},
+         "max_abs_err": regloop["max_abs_err"]["fused"],
+         "ms": shard_app["device_ms_per_iteration"],
+         "plain_ms": plain["fused_plain_ms"],
+         "bound_ms": shard_app["bound_ms_per_iteration"],
+         "bound_by": shard_app["bound_by"],
+         "share_of_bound": shard_app["share_of_bound"],
+         "library_ms": None, "k4_library_ms": plain["solve_ex_ms"],
+         "device_us_per_launch": shard_app["device_us_per_launch"],
+         "ms_per_registration": shard_app["ms"],
+         "ms_per_registration_eager": shard_app["ms_eager"],
+         "host_ms_per_registration": shard_app["host_ms"],
+         "host_ms_per_registration_eager": shard_app["host_ms_eager"],
+         "loop": {k: {key: v[key] for key in (
+             "iterations", "launches", "device_ms_per_iteration",
+             "bound_ms_per_iteration", "ms", "ms_eager", "host_ms",
+             "host_ms_eager")} for k, v in regloop["shard_times"].items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card["nvidia_smi"])

@@ -246,6 +246,31 @@ def loop_problems(scenes, rows=None) -> dict:
             in out.items()}
 
 
+def two_phase_loop(prob, pose, mesh, trace=None):
+    """The sharded loop in its two-phase order, the yardstick of the fused
+    one: at each iteration this rank's ``reg_stats_plain`` row on its
+    slab, the ranks' rows all-gathered in rank order (no collective
+    without a group), then ``reg_step_plain`` on them; ``trace`` row i
+    gets the carry before step i and the rows.  Returns the end state."""
+    from warpsense_tpu_torch.ops import registration as treg
+    state = treg.init_state(prob, pose, "cpu")
+    rows_all = torch.zeros((mesh.world, treg.PARTIALS))
+    parts = list(rows_all.chunk(mesh.world))
+    cache: dict = {}
+    while not treg.stopped(state, prob):
+        row = treg.reg_stats_plain(state, prob, cache)
+        if mesh.group is None:
+            rows_all.copy_(row)
+        else:
+            dist.all_gather(parts, row.contiguous(), group=mesh.group)
+        if trace is not None:
+            t = trace[int(state[treg.S_I])]
+            t[:treg.STATE_LEN] = state
+            t[treg.STATE_LEN:] = rows_all.reshape(-1)
+        treg.reg_step_plain(state, rows_all, prob)
+    return state
+
+
 def run_loop(mesh) -> dict:
     """The sharded loops on this rank: every ``loop_problems`` registration
     on the rank's slab through ``run_registration_sharded`` at each of
@@ -266,6 +291,11 @@ def run_loop(mesh) -> dict:
             out[f"{name}_state_{chunk}"] = st.numpy()
             out[f"{name}_head_{chunk}"] = np.asarray(head)
             out[f"{name}_trace_{chunk}"] = trace.numpy()
+        trace = torch.zeros((prob.max_iterations,
+                             treg.trace_width(mesh.world)))
+        out[f"{name}_two_phase_state"] = two_phase_loop(
+            prob, pose, mesh, trace).numpy()
+        out[f"{name}_two_phase_trace"] = trace.numpy()
     (level, pts, mask), (ray, rpts, rmask) = scenes
     kw = dict(PACKED_REG_KW)
     for name, exact, freeze, pose in (("packed", False, False, PERT),

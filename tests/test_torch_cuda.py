@@ -771,16 +771,18 @@ def test_loop_kernel_places_its_cluster(reg_problems):
         32, device=out.device, dtype=torch.float32)))
 
 
-# ------------------------- registration: the sharded loop (K3 and K4 apart)
+# ------------------------- registration: the sharded loop (one launch an
+# iteration)
 # The same problems cut into x-slabs of the window, as the ranks of a mesh
 # hold them (``RegProblem.x_lo``, ``x_rows``; the fields are the slab's
-# rows).  A world is simulated in one process: each rank's statistics
-# (``shard_stats_kernel``) write their rows into its rank's place of one
-# (world * 16, 32) buffer, then every rank steps on it
-# (``shard_step_kernel``).  Tolerances: each rank's rows, summed, against
-# ``reg_stats_plain`` on its slab as REGLOOP's (relative 1e-5, c exact); a
-# world of one is the loop kernel's registration to the bit; every rank's
-# carry the same bits; every traced step the plain step's bits.
+# rows).  A world is simulated in one process: each rank launches
+# ``shard_iter_kernel`` (the step on the rows gathered last, then its
+# slab's statistics into its rows), then every rank's rows are copied into
+# its place of one shared (2, world * 16, 32) buffer (the gather).
+# Tolerances: each rank's rows, summed, against ``reg_stats_plain`` on its
+# slab as REGLOOP's (relative 1e-5, c exact); a world of one is the loop
+# kernel's registration to the bit; every rank's carry the same bits;
+# every traced step the plain step's bits.
 
 def _slab(prob, lo, hi):
     """``prob`` on the window's rows [lo, hi): the fields' rows, owned."""
@@ -796,24 +798,30 @@ def _simulated_world(prob, pose, world, traced=True):
     from warpsense_tpu_torch.kernels import registration as kreg
     X = prob.size[0]
     k = kreg.CLUSTER
-    rows_all = torch.zeros((world * k, treg.PARTIALS), device=pose.device)
+    shared = torch.zeros((2, world * k, treg.PARTIALS), device=pose.device)
     ranks = []
     for r in range(world):
         sp = _slab(prob, r * X // world, (r + 1) * X // world)
-        st = treg.init_state(sp, pose, pose.device)
+        bufs = kreg.shard_buffers(pose.device, world)._replace(
+            rows_all=shared)
+        treg.init_state(sp, pose, pose.device,
+                        out=bufs.carry[0, :treg.STATE_LEN])
         trace = torch.zeros((prob.max_iterations, treg.trace_width(world * k)),
                             device=pose.device) if traced else None
-        ranks.append((st, trace, sp, kreg.shard_plan(
-            st, sp, rows_all[r * k:(r + 1) * k], rows_all, trace=trace)))
-    while not treg.stopped(ranks[0][0], prob):
+        ranks.append((bufs, trace, sp, kreg.shard_plan(bufs, sp,
+                                                       trace=trace)))
+    parity = 0
+    while not treg.stopped(ranks[0][0].carry[parity, :treg.STATE_LEN], prob):
         for _ in range(treg.CHUNK):
             for *_, plan in ranks:
-                kreg.shard_stats(plan)
-            for *_, plan in ranks:
-                kreg.shard_step(plan)
+                kreg.shard_iter(plan, parity)
+            for r, (bufs, *_) in enumerate(ranks):
+                shared[1 - parity, r * k:(r + 1) * k].copy_(
+                    bufs.rows[1 - parity])
+            parity ^= 1
     torch.cuda.synchronize()
-    return ([r[0] for r in ranks], [r[1] for r in ranks],
-            [r[2] for r in ranks])
+    return ([r[0].carry[parity, :treg.STATE_LEN].clone() for r in ranks],
+            [r[1] for r in ranks], [r[2] for r in ranks])
 
 
 def _check_rank_stats(trace, n, slabs):
@@ -850,7 +858,7 @@ def _check_rank_stats(trace, n, slabs):
 @pytest.mark.parametrize("world", [1, 2, 4])
 @pytest.mark.parametrize("name", ["packed", "exact", "parity"])
 def test_shard_stats_matches_plain_on_each_slab(reg_problems, name, world):
-    """``shard_stats_kernel`` on each rank's slab against the plain
+    """``shard_iter_kernel``'s rows on each rank's slab against the plain
     statistics on that slab, in every mode the layout runs; a second run
     traces the same bits."""
     pose, probs = reg_problems
@@ -874,8 +882,10 @@ def test_sharded_loop_at_a_world_of_one_is_the_loop_kernel(reg_problems,
                                                            name):
     """``run_registration_sharded`` without a group: the loop kernel's
     registration to the bit (end state, header, every traced carry and
-    row), its kernels launched once an iteration of each chunk, the header
-    read once a chunk."""
+    row), its kernel launched once an iteration of each chunk, the header
+    read once a chunk (``shard_reads``), alike from a fresh mesh's first
+    registration (launched from the host) and the later ones (its
+    captured chunk, replayed)."""
     from warpsense_tpu_torch.kernels import registration as kreg
     from warpsense_tpu_torch.parallel.sharded import (
         make_mesh, run_registration_sharded)
@@ -884,19 +894,135 @@ def test_sharded_loop_at_a_world_of_one_is_the_loop_kernel(reg_problems,
                         (probs[name], _reg_pose(*FREEZE_POSE).to(
                             pose.device))):
         st, trace = _traced(prob, start)
-        strace = torch.zeros_like(trace)
-        counts = (kreg.shard_stats.launches, kreg.shard_step.launches,
-                  treg.run_registration.syncs)
-        got, head = run_registration_sharded(prob, start, make_mesh("cuda"),
-                                             trace=strace)
-        n = int(head[treg.S_I])
-        reads = -(-n // treg.CHUNK)
-        assert (kreg.shard_stats.launches - counts[0],
-                kreg.shard_step.launches - counts[1],
-                treg.run_registration.syncs - counts[2]) == (
-            reads * treg.CHUNK, reads * treg.CHUNK, reads)
+        mesh = make_mesh("cuda")
+        for replayed in (False, True, True):
+            strace = torch.zeros_like(trace)
+            counts = (kreg.shard_iter.launches, treg.run_registration.syncs,
+                      kreg.shard_iter.replays)
+            got, head = run_registration_sharded(
+                prob, start, mesh, trace=strace)
+            reads = treg.shard_reads(int(head[treg.S_I]))
+            assert (kreg.shard_iter.launches - counts[0],
+                    treg.run_registration.syncs - counts[1],
+                    kreg.shard_iter.replays - counts[2]) == (
+                reads * treg.CHUNK, reads, reads if replayed else 0)
+            assert torch.equal(got, st) and head == st[:treg.S_HEAD].tolist()
+            assert torch.equal(strace, trace)
+
+
+def test_sharded_loop_with_an_odd_chunk_stays_a_host_loop(reg_problems):
+    """An odd chunk cannot be captured (the carry would end in slot 1):
+    every registration at chunk 3, the second of its kind too, launches
+    from the host, one launch an iteration, and gives the loop kernel's
+    bits."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    pose, probs = reg_problems
+    prob = probs["packed"]
+    st, _ = _traced(prob, pose)
+    mesh = make_mesh("cuda")
+    before = (kreg.shard_iter.replays, kreg.shard_iter.captures)
+    for _ in range(2):
+        launches = kreg.shard_iter.launches
+        got, head = run_registration_sharded(prob, pose, mesh, chunk=3)
+        reads = treg.shard_reads(int(head[treg.S_I]), 3)
+        assert kreg.shard_iter.launches - launches == 3 * reads
         assert torch.equal(got, st) and head == st[:treg.S_HEAD].tolist()
-        assert torch.equal(strace, trace)
+    assert (kreg.shard_iter.replays, kreg.shard_iter.captures) == before
+
+
+def test_fused_kernel_matches_its_plain_version(reg_problems):
+    """One launch of ``shard_iter_kernel`` against ``fused_iteration_plain``
+    on the same carry slot and rows, at every traced carry of a
+    registration on a slab of half the window: the new carry (the step)
+    to the bit, PENDING set, the rows' sum within 1e-5 relative (c
+    exact); the slot read and the rows read stay as they were (the
+    double buffer); a stopped carry is copied with PENDING clear and no
+    rows written."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    pose, probs = reg_problems
+    for name in ("packed", "parity"):
+        prob = probs[name]
+        X = prob.size[0]
+        sp = _slab(prob, 0, X // 2)
+        states, traces, _ = _simulated_world(prob, pose, 2)
+        n = int(states[0][treg.S_I])
+        bufs = kreg.shard_buffers(pose.device, 1, shared=True)
+        plan = kreg.shard_plan(bufs, sp)
+        host = sp._replace(fields=type(sp.fields)(
+            *(f.cpu() for f in sp.fields)), pos=sp.pos.cpu(),
+            offset=sp.offset.cpu(), points=sp.points.cpu(),
+            mask=sp.mask.cpu())
+        cache: dict = {}
+        for i in range(1, n):
+            for parity in (0, 1):
+                src = torch.zeros(treg.CARRY_LEN, device=pose.device)
+                src[:treg.STATE_LEN] = traces[0][i - 1, :treg.STATE_LEN]
+                src[treg.PENDING] = 1.0
+                rows_in = traces[0][i - 1, treg.STATE_LEN:].reshape(
+                    -1, treg.PARTIALS)[:kreg.CLUSTER]
+                bufs.carry[parity].copy_(src)
+                bufs.rows[parity].copy_(rows_in)
+                bufs.carry[1 - parity].fill_(-1.0)
+                kreg.shard_iter(plan, parity)
+                torch.cuda.synchronize()
+                assert torch.equal(bufs.carry[parity], src)
+                assert torch.equal(bufs.rows[parity], rows_in)
+                want_src = src.cpu()
+                want_dst = torch.full((treg.CARRY_LEN,), -1.0)
+                want_rows = torch.zeros((1, treg.PARTIALS))
+                treg.fused_iteration_plain(want_src, want_dst, rows_in.cpu(),
+                                           want_rows, host, cache)
+                got = bufs.carry[1 - parity].cpu()
+                assert torch.equal(got[:treg.PENDING + 1],
+                                   want_dst[:treg.PENDING + 1]), (name, i)
+                if bool(want_dst[treg.PENDING]):
+                    row = treg.sum_partials(bufs.rows[1 - parity]).cpu()
+                    assert row[28] == want_rows[0, 28]
+                    for lo, hi in ((0, 21), (21, 27), (27, 28)):
+                        d = (row[lo:hi].double()
+                             - want_rows[0, lo:hi].double()).abs().max()
+                        assert d <= 1e-5 * max(float(
+                            want_rows[0, lo:hi].abs().max()), 1e-30)
+        stop = bufs.carry[0].clone()
+        stop[treg.S_FIN] = 1.0
+        stop[treg.PENDING] = 0.0
+        bufs.carry[0].copy_(stop)
+        kept = bufs.rows.clone()
+        kreg.shard_iter(plan, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(bufs.carry[1, :treg.STATE_LEN],
+                           stop[:treg.STATE_LEN])
+        assert bufs.carry[1, treg.PENDING] == 0.0
+        assert torch.equal(bufs.rows, kept)
+
+
+def test_one_launch_an_iteration(reg_problems):
+    """The sharded loop at a world of one launches ``shard_iter_kernel``
+    once an iteration of every chunk and no loop kernel: a fresh mesh's
+    first registration from the host, CHUNK launches a header read and no
+    replay; the next ones from the captured chunk, one replay a header
+    read, the chunk captured once for every registration of its kind."""
+    from warpsense_tpu_torch.kernels import registration as kreg
+    from warpsense_tpu_torch.parallel.sharded import (
+        make_mesh, run_registration_sharded)
+    pose, probs = reg_problems
+    prob = probs["packed"]
+    mesh = make_mesh("cuda")
+    captures = kreg.shard_iter.captures
+    for runs, replayed in ((1, False), (3, True)):
+        before = (kreg.shard_iter.launches, kreg.shard_iter.replays,
+                  kreg.reg_loop.launches, treg.run_registration.syncs)
+        for _ in range(runs):
+            _, head = run_registration_sharded(prob, pose, mesh)
+        reads = runs * treg.shard_reads(int(head[treg.S_I]))
+        assert (kreg.shard_iter.launches - before[0],
+                kreg.shard_iter.replays - before[1],
+                kreg.reg_loop.launches - before[2],
+                treg.run_registration.syncs - before[3]) == (
+            reads * treg.CHUNK, reads if replayed else 0, 0, reads)
+        assert kreg.shard_iter.captures - captures == int(replayed)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -924,18 +1050,19 @@ def test_sharded_steps_are_the_plain_step_on_every_rank(reg_problems, name,
 
 
 def test_sharded_kernels_raise_on_a_failed_launch(reg_problems, monkeypatch):
-    """A plan the library refuses (an unknown layout) and a launch that
-    fails raise; nothing falls back to the plain versions and the launch
-    counts stay."""
+    """Arguments the library refuses (an unknown layout) and a launch that
+    fails raise, launched from the host or captured; nothing falls back
+    to the plain versions and the launch counts stay."""
     from warpsense_tpu_torch.kernels import registration as kreg
     from warpsense_tpu_torch.parallel.sharded import (
         make_mesh, run_registration_sharded)
     pose, probs = reg_problems
     prob = probs["packed"]
-    st = treg.init_state(prob, pose, pose.device)
-    rows = torch.zeros((kreg.CLUSTER, treg.PARTIALS), device=pose.device)
-    with pytest.raises(RuntimeError, match="plan"):
-        kreg.shard_plan(st, prob._replace(layout=7), rows, rows)
+    bufs = kreg.shard_buffers(pose.device, 1, shared=True)
+    with pytest.raises(RuntimeError, match="arguments"):
+        kreg.shard_plan(bufs, prob._replace(layout=7))
+    cold, warm = make_mesh("cuda"), make_mesh("cuda")
+    run_registration_sharded(prob, pose, warm)    # warm, not captured
     lib = kreg._lib()
 
     class Failing:
@@ -943,14 +1070,15 @@ def test_sharded_kernels_raise_on_a_failed_launch(reg_problems, monkeypatch):
             return getattr(lib, name)
 
         @staticmethod
-        def ws_reg_shard_stats(plan):
+        def ws_reg_shard_iter(args, layout, parity, stream):
             return 700          # cudaErrorIllegalAddress
 
     monkeypatch.setattr(kreg, "_lib", lambda: Failing())
-    launches = (kreg.shard_stats.launches, kreg.shard_step.launches)
-    with pytest.raises(RuntimeError, match="sharded statistics"):
-        run_registration_sharded(prob, pose, make_mesh("cuda"))
-    assert (kreg.shard_stats.launches, kreg.shard_step.launches) == launches
+    launches = (kreg.shard_iter.launches, kreg.shard_iter.replays)
+    for mesh in (cold, warm):       # launched from the host; captured
+        with pytest.raises(RuntimeError, match="sharded iteration"):
+            run_registration_sharded(prob, pose, mesh)
+    assert (kreg.shard_iter.launches, kreg.shard_iter.replays) == launches
 
 
 def test_sharded_app_monitor_on_cuda_is_the_single_gpu_apps(cuda):

@@ -351,10 +351,11 @@ def test_fusion_dispatch():
     assert not level and np.allclose(R.numpy(), _tilt(3.0))
     assert abs(tfb.sensor_tilt_deg(pose) - 3.0) < 1e-3
     # the ray march needs its plan (tests/test_torch_raymarch.py runs it);
-    # an unknown name is refused
+    # an unknown name is refused ("pallas" is JAX's name of the level
+    # path: tests/test_torch_api_parity.py)
     with pytest.raises(ValueError, match="max_steps"):
         tfb.fuse_cloud(_tfresh(), None, None, pose, params=Params(),
                        size=SIZE, fusion="raymarch")
     with pytest.raises(ValueError, match="unknown fusion"):
         tfb.fuse_cloud(_tfresh(), None, None, pose, params=Params(),
-                       size=SIZE, fusion="pallas")
+                       size=SIZE, fusion="mosaic")

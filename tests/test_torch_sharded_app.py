@@ -28,6 +28,7 @@ tests/test_sharded_app.py's and test_distributed.py's.  Tolerances:
   counts and shift positions equal JAX's monitored sharded app's, and its
   last window agrees with JAX's to the merged-map test's share.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -329,7 +330,7 @@ def test_attitude_fallback_and_limits(monkeypatch):
     watched.terminate()
     st = json.loads(mon.status_json())
     assert st["scans"] == 1 and st["map_epoch"] == 1
-    mesh2 = make_mesh("cpu")._replace(world=2)
+    mesh2 = dataclasses.replace(make_mesh("cpu"), world=2)
     with pytest.raises(ValueError, match="divide"):
         ws.ShardedWarpsenseApp(Params.from_dict(w.app_config()),
                                mesh=mesh2, in_memory_map=True,

@@ -22,6 +22,12 @@ world of 1 without a group runs in this process.  Tolerances:
 * every rank ends on the same carry and traces the same steps, bit for
   bit, each step the plain step's replay; the chunk size (1, 3, 8)
   changes no bit;
+* the loop's fused order (one iteration: the step on the rows gathered
+  last, then the next statistics on the same carry, double-buffered:
+  ``fused_iteration_plain``, the plain version of ``shard_iter_kernel``)
+  is the two-phase order (statistics, gather, step:
+  ``_torch_dist_worker.two_phase_loop``) to the bit: end state,
+  iterations and trace, at every world and chunk size;
 * against JAX's sharded functions on conftest's 8-device CPU mesh: poses
   within 0.5 mm and 1e-4 rad (the port's registration tolerance; the
   statistics are summed in another order), the LM's iterations equal.
@@ -308,3 +314,80 @@ def test_jax_fast_gn_parts_with_itself(scenes):
                         **kw)))
     w.assert_pose_close(*poses[w.FAST_GN_ITERATIONS])
     assert w.rot_err(*poses[w.PARITY_REG_KW["max_iterations"]]) > 1e-3
+
+
+@pytest.mark.parametrize("name", w.LOOP_NAMES)
+def test_fused_order_is_the_two_phase_loop(ranks, name):
+    """On every world (1 through a gloo group of one, 2 and 4) and at every
+    chunk size: the fused order's end state, iterations and trace are the
+    two-phase loop's, bit for bit."""
+    r0 = ranks[0]
+    want = r0[f"{name}_two_phase_state"]
+    wtrace = r0[f"{name}_two_phase_trace"]
+    assert 2 < want[treg.S_I]
+    for chunk in w.LOOP_CHUNKS:
+        np.testing.assert_array_equal(r0[f"{name}_state_{chunk}"], want)
+        np.testing.assert_array_equal(r0[f"{name}_trace_{chunk}"], wtrace)
+        assert r0[f"{name}_head_{chunk}"][treg.S_I] == want[treg.S_I]
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("name", ["packed", "exact", "gn_parity"])
+def test_fused_order_without_a_group(problems, name, chunk):
+    """A world of one without a group, in this process: the fused order's
+    end state, header and trace are the two-phase loop's, bit for bit."""
+    prob, pose = problems[name]
+    mesh = sh.make_mesh("cpu")
+    trace = torch.zeros((prob.max_iterations, treg.trace_width(1)))
+    wtrace = torch.zeros_like(trace)
+    with one_thread():
+        got, head = sh.run_registration_sharded(prob, pose, mesh,
+                                                chunk=chunk, trace=trace)
+        want = w.two_phase_loop(prob, pose, mesh, wtrace)
+    assert torch.equal(got, want) and head == want[:treg.S_HEAD].tolist()
+    assert torch.equal(trace, wtrace)
+
+
+def test_fused_iteration_is_a_step_then_the_next_statistics(problems):
+    """One fused iteration from slot 0 into slot 1: with no rows pending
+    it only computes the statistics (and copies the carry); with rows
+    pending it takes the plain step on them, then the statistics at the
+    stepped carry; slot 0 stays as it was; a stopped carry clears
+    PENDING and leaves the rows."""
+    prob, pose = problems["packed"]
+    carry = torch.zeros((2, treg.CARRY_LEN))
+    treg.init_state(prob, pose, "cpu", out=carry[0, :treg.STATE_LEN])
+    rows = torch.zeros((2, 1, treg.PARTIALS))
+    with one_thread():
+        state = treg.init_state(prob, pose, "cpu")
+        before = carry[0].clone()
+        treg.fused_iteration_plain(carry[0], carry[1], rows[0], rows[1],
+                                   prob, {})
+        assert torch.equal(carry[0], before)
+        assert torch.equal(carry[1, :treg.STATE_LEN], state)
+        assert carry[1, treg.PENDING] == 1.0
+        row = treg.reg_stats_plain(state, prob, {})
+        assert torch.equal(rows[1], row)
+        treg.fused_iteration_plain(carry[1], carry[0], rows[1], rows[0],
+                                   prob, {})
+        treg.reg_step_plain(state, row, prob)
+        assert torch.equal(carry[0, :treg.STATE_LEN], state)
+        assert torch.equal(rows[0], treg.reg_stats_plain(state, prob, {}))
+        done = carry[0].clone()
+        done[treg.S_FIN] = 1.0
+        done[treg.PENDING] = 0.0
+        kept = rows.clone()
+        out = torch.ones(treg.CARRY_LEN)
+        treg.fused_iteration_plain(done, out, rows[0], rows[1], prob, {})
+        assert torch.equal(out[:treg.STATE_LEN], done[:treg.STATE_LEN])
+        assert out[treg.PENDING] == 0.0
+        assert torch.equal(rows, kept)
+
+
+def test_header_reads_of_the_fused_chunks():
+    """A chunk's first launch steps on the rows of the chunk before, so
+    a registration of n steps ends after n + 1 launches:
+    ceil((n + 1) / chunk) header reads."""
+    assert [treg.shard_reads(n) for n in (1, 5, 6, 7, 8, 15, 200)] == [
+        1, 1, 1, 1, 2, 2, 26]
+    assert treg.shard_reads(5, 1) == 6

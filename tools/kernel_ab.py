@@ -2,7 +2,8 @@
 """Time kernels K1 and K2, and the registration loop kernel, of two or more
 checkouts of warpsense_tpu_torch on one GPU, or run their SHARDED phases.
 
-    python3 tools/kernel_ab.py [--kernels k1,k2,loop | sharded] ROOT [ROOT ...]
+    python3 tools/kernel_ab.py [--kernels k1,k2,loop | sharded | shardloop]
+        ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``warpsense_tpu_torch`` package (a
 checkout of another commit, unpacked with ``git archive``, or ``.``).  Every
@@ -22,11 +23,18 @@ checks and the timing are chip_smoke.py's (this checkout's):
   chip_smoke's REGLOOP problems (``time_loops``): its device time an
   iteration on the whole cloud and on every 1,024th point, and one
   registration between events;
+* shardloop (alone): the ROOT's own SHARDLOOP timing, its
+  ``chip_smoke.time_shard_loops`` on its REGLOOP problems after its
+  ``build_kernels()`` (the sharded loop at a world of one, no group):
+  each problem's iterations, launches, one registration between events,
+  the loop's device time an iteration (torch.profiler) and, where the
+  checkout measures it, the host clock of a registration;
 * sharded (alone): the ROOT's own SHARDED phase, its
   ``chip_smoke.run_sharded`` after its ``build_kernels()`` (two gloo ranks
   on the card, then its NCCL rank of one, with that checkout's app, loop
   and checks): every gloo rank's spans (``stage_avg_ms``), scan times and
-  registration loop report, where the checkout makes one.
+  registration loop report, where the checkout makes one, and the NCCL
+  rank's registration times.
 
 The first line is the card's name and power limit as nvidia-smi gives them.
 """
@@ -39,7 +47,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
-KERNELS = ("k1", "k2", "loop", "sharded")
+KERNELS = ("k1", "k2", "loop", "sharded", "shardloop")
+ALONE = ("sharded", "shardloop")
 
 
 def sharded_root(root: str) -> dict:
@@ -49,15 +58,38 @@ def sharded_root(root: str) -> dict:
     cs.build_kernels()
     rep = cs.run_sharded(torch, cs.SHARDED)
     loops = rep.get("registration") or [None] * len(rep["ranks"])
+    nccl = rep.get("nccl_registration")
     return {"root": root, "ranks": [
         dict(rank=r["rank"], stage_avg_ms=r["stage_avg_ms"],
              scan_ms=r["scan_ms"], **({"loop": loop} if loop else {}))
-        for r, loop in zip(rep["ranks"], loops)]}
+        for r, loop in zip(rep["ranks"], loops)],
+        **({"nccl": {k: nccl.get(k) for k in (
+            "ms_by_registration", "loop_ms_repeated", "header_reads",
+            "syncs_by_registration")}} if nccl else {})}
+
+
+def shardloop_root(root: str) -> dict:
+    sys.path.insert(0, str(Path(root).resolve()))
+    import chip_smoke as cs           # ROOT's own checks and timing
+    import torch
+    cs.build_kernels()
+    device = torch.device("cuda", 0)
+    full, _ = cs.check_fusion(torch, cs.FULL, device)
+    default, _ = cs.check_fusion(torch, cs.default_fusion_cfg(), device)
+    probs = cs.regloop_problems(torch, full, default, device)
+    poses = [p.to(device) for p in cs.regloop_poses(torch)]
+    keys = ("iterations", "launches", "ms", "device_ms_per_iteration",
+            "host_ms", "host_ms_eager", "ms_eager")
+    return {"root": root, "loops": {
+        name: {k: t[k] for k in keys if k in t}
+        for name, t in cs.time_shard_loops(torch, probs, poses).items()}}
 
 
 def time_root(root: str, kernels) -> dict:
     if kernels == ["sharded"]:
         return sharded_root(root)
+    if kernels == ["shardloop"]:
+        return shardloop_root(root)
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs           # this checkout's, whatever ROOT holds
     # the package comes from ROOT: chip_smoke imports it inside its functions
@@ -103,15 +135,15 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default="k1,k2",
                     help="comma-separated subset of k1,k2,loop, or "
-                    "sharded alone")
+                    "sharded or shardloop alone")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="+")
     args = ap.parse_args(argv[1:])
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(KERNELS):
         ap.error(f"--kernels takes a subset of {','.join(KERNELS)}")
-    if "sharded" in kernels and len(kernels) > 1:
-        ap.error("--kernels sharded runs alone")
+    if set(kernels) & set(ALONE) and len(kernels) > 1:
+        ap.error("--kernels sharded and shardloop run alone")
     if args.one:
         print(json.dumps(time_root(args.roots[0], kernels)), flush=True)
         return 0

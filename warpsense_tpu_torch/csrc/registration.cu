@@ -71,19 +71,33 @@
 // statistics are psum-ed :134, and register_cloud_packed_sharded :397, one
 // fused psum an iteration :439).  Each rank owns an x-slab of the window's
 // ring rows [x_lo, x_lo + x_rows); a point whose cell another rank owns
-// adds nothing.  An iteration there is two launches with the ranks' rows
-// all-gathered between them on the stream (NCCL), because a kernel that
-// waited inside itself for another process's rows could deadlock on a card
-// that time-slices the ranks' kernels:
-//   shard_stats_kernel  K3 of one rank: the loop kernel's C CTAs and point
-//       plan without the cluster, each CTA's row into a (C, 32) buffer;
-//   shard_step_kernel   K4 on one warp: the world * C gathered rows summed
-//       in sum_partials' order (rank-major, so every rank steps on the same
-//       bits), the same step(); its trace row i is the carry before step i
-//       and the world * C rows.
-// Both read the carry from device memory and return at once on a finished
-// one, so the host enqueues CHUNK iterations between two header reads.
-//
+// adds nothing.  The ranks' rows of an iteration are all-gathered between
+// two launches on the stream (NCCL), because a kernel that waited inside
+// itself for another process's rows could deadlock on a card that
+// time-slices the ranks' kernels.  So an iteration is one launch of
+// shard_iter_kernel, the step of the iteration before folded into it:
+//   every CTA (the loop kernel's C CTAs and point plan, no cluster) reads
+//   the carry slot ``parity`` and, when its PENDING flag is set, the
+//   world's gathered rows of that carry's iteration (rank-major), sums them
+//   in sum_partials' order and takes step() in its shared memory, so every
+//   CTA and every rank holds the same bits with nothing broadcast; CTA 0
+//   writes the new carry into the other slot; then, unless the carry
+//   stopped, each CTA computes its row of the next iteration's statistics
+//   from that carry into this rank's rows of the other slot, which the
+//   collective gathers for the next launch.
+// The carry and the rows are double-buffered by the launch's parity, so no
+// CTA reads what another CTA of its launch writes.  A chunk is CHUNK such
+// launches (each followed by the rows' all-gather) and one header read;
+// the rows of a chunk's last launch are stepped on by the next chunk's
+// first.  The arguments live in device memory (ShardArgs, written by the
+// host before each registration), so that a CUDA graph of one chunk,
+// captured once, serves every registration of the same kind.  With a
+// trace, CTA 0 writes row i (kStateLen + nrows * 32 floats: the carry
+// before step i and the rows) where it takes step i.  What bounds it is
+// latency, as for the loop kernel: a launch, the step and the statistics
+// run one after another, so the design cuts launches (one an iteration)
+// and the host's work between them (the captured chunk).
+
 // Two macros are for tools/loop_phases.py alone, which builds a copy of
 // this file with them: WS_REG_CLUSTER (C, 16 by default) and
 // WS_LOOP_PHASES (CTA 0's thread 0 stamps each iteration's phases with
@@ -156,7 +170,7 @@ struct LoopArgs {
 };
 
 // a rank's slab: its ring rows [x_lo, x_lo + x_rows) of the window, the
-// rows its planes hold (shard_stats_kernel alone takes one, so that the
+// rows its planes hold (shard_iter_kernel alone takes one, so that the
 // loop kernel's arguments stay as they were)
 struct Slab {
   int x_lo, x_rows;
@@ -387,7 +401,7 @@ __device__ void thread_points(const LoopArgs& a, Slab slab, const float* T,
     point_stats<L, M, S>(a, slab, T, m, j * stride, acc);
 }
 
-// The sharded K3's parts (shard_stats_kernel): the loop kernel's K3 with
+// The sharded K3's parts (shard_iter_kernel): the loop kernel's K3 with
 // the same operations in the same order, which the loop kernel writes out
 // in its body (called through these helpers, its SASS moved and its
 // packed REGLOOP problem ran ~2% slower: PERF.md section 6).
@@ -758,7 +772,7 @@ loop_kernel(LoopArgs a) {
       else if (a.split)
         mode = s[S_FROZEN] != 0.0f ? kCached : kGather;
     }
-    // K3: this CTA's row of sums at the trial pose (shard_stats_kernel's
+    // K3: this CTA's row of sums at the trial pose (shard_iter_kernel's
     // helpers, written out)
     const float* T = s + S_TRIAL;
     int m[12];
@@ -843,80 +857,90 @@ loop_kernel(LoopArgs a) {
   if (rank == 0 && tid < kStateLen) a.state[tid] = s[tid];
 }
 
-// ------------------------------------------------- the sharded loop's K3
+// --------------------------------------------- the sharded loop's iteration
 
-// K3 of one rank for one iteration: the loop kernel's kCluster CTAs and
-// point plan (global thread g = CTA * kThreads + thread), without the
-// cluster; CTA b writes its row into rows[b] (kPartials floats, zeros past
-// kSums).  Nothing on a finished carry.
+// a carry slot: the state, then the PENDING flag (ops/registration.py
+// CARRY_LEN, PENDING), then unused zeros
+constexpr int kCarry = kStateLen + 32;
+constexpr int kPending = kStateLen;
+
+// what a sharded iteration reads, in device memory (ws_reg_shard_args
+// fills it on the host; the wrapper copies it to the card)
+struct ShardArgs {
+  LoopArgs a;             // a.state unused: the carry is below
+  Slab slab;
+  float* carry;           // [2][kCarry]
+  float* rows;            // [2][kCluster][kPartials]: this rank's rows
+  const float* rows_all;  // [2][nrows][kPartials]: the world's, rank-major
+  int nrows;              // world * kCluster
+};
+constexpr int kArgWords = (int)(sizeof(ShardArgs) / 4);
+static_assert(sizeof(ShardArgs) % 4 == 0 && kArgWords <= kThreads,
+              "one word of the arguments a thread");
+
+// One sharded iteration (see the head of this file): the step of the
+// carry slot ``parity`` on the gathered rows when they are pending, the
+// new carry into the other slot (CTA 0), then this rank's rows of the next
+// iteration's statistics, a row a CTA, into the other slot of ``rows``.
 template <int L>
 __global__ void __launch_bounds__(kThreads, 1)
-shard_stats_kernel(LoopArgs a, Slab slab, float* rows) {
-  const int tid = threadIdx.x;
+shard_iter_kernel(const ShardArgs* __restrict__ args, int parity) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ ShardArgs p;
   __shared__ float s[kStateLen];
   __shared__ float red[kWarps][kPartials];
-  if (tid < kStateLen) s[tid] = a.state[tid];
+  __shared__ StepScratch w;
+  if (tid < kArgWords)
+    reinterpret_cast<int*>(&p)[tid] = reinterpret_cast<const int*>(args)[tid];
   __syncthreads();
+  const float* src = p.carry + parity * kCarry;
+  if (tid < kStateLen) s[tid] = src[tid];
+  const bool pending = src[kPending] != 0.0f;
+  __syncthreads();
+  const LoopArgs& a = p.a;
+  if (pending) {
+    if (warp == 0) {
+      const int n = p.nrows;
+      const float* rows = p.rows_all + (long long)parity * n * kPartials;
+      float* row = a.trace == nullptr || blockIdx.x != 0 ? nullptr
+          : a.trace + (long long)(int)s[S_I] * (kStateLen + n * kPartials);
+      if (row != nullptr) {
+        for (int k = lane; k < kStateLen; k += 32) row[k] = s[k];
+      }
+      float t[kLanes] = {};
+      for (int b = 0; b < n; b += kCluster) {
+        float x[kCluster];
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r)
+          x[r] = rows[(b + r) * kPartials + lane];
+        add_rows(x, t);
+        if (row != nullptr) {
+#pragma unroll
+          for (int r = 0; r < kCluster; ++r)
+            row[kStateLen + (b + r) * kPartials + lane] = x[r];
+        }
+      }
+      w.sum[lane] = lanes_total(t);
+      __syncwarp();
+      step(s, w, a, lane);
+    }
+    __syncthreads();
+  }
   const int i = (int)s[S_I];
-  if (s[S_FIN] != 0.0f || i >= a.max_it) return;
+  const bool go = s[S_FIN] == 0.0f && i < a.max_it;
+  if (blockIdx.x == 0) {
+    float* dst = p.carry + (1 - parity) * kCarry;
+    if (tid < kStateLen) dst[tid] = s[tid];
+    else if (tid == kPending) dst[kPending] = go ? 1.0f : 0.0f;
+  }
+  if (!go) return;
   float acc[kSums];
-  thread_stats<L, true>(a, slab, s, iteration_mode<L>(s, a, i),
+  thread_stats<L, true>(a, p.slab, s, iteration_mode<L>(s, a, i),
                         (int)blockIdx.x * kThreads + tid, acc);
   const float t = cta_row(acc, red, tid);
-  if (tid < kPartials) rows[blockIdx.x * kPartials + tid] = t;
+  if (tid < kPartials)
+    p.rows[((1 - parity) * kCluster + blockIdx.x) * kPartials + tid] = t;
 }
-
-// ------------------------------------------------- the sharded loop's K4
-
-// one step on one warp from ``n`` gathered rows (rank-major): their sum in
-// sum_partials' order, then step() on the carry, written back.  With a
-// trace, row i (kStateLen + n * kPartials floats) gets the carry before
-// the step and the rows.  Nothing on a finished carry.
-__global__ void __launch_bounds__(32, 1)
-shard_step_kernel(LoopArgs a, const float* rows, int n) {
-  const int lane = threadIdx.x;
-  __shared__ float s[kStateLen];
-  __shared__ StepScratch w;
-  for (int k = lane; k < kStateLen; k += 32) s[k] = a.state[k];
-  __syncwarp();
-  const int i = (int)s[S_I];
-  if (s[S_FIN] != 0.0f || i >= a.max_it) return;
-  float* row = a.trace == nullptr ? nullptr
-      : a.trace + (long long)i * (kStateLen + n * kPartials);
-  if (row != nullptr) {
-    for (int k = lane; k < kStateLen; k += 32) row[k] = s[k];
-  }
-  float t[kLanes] = {};
-  for (int b = 0; b < n; b += kCluster) {
-    float x[kCluster];
-#pragma unroll
-    for (int r = 0; r < kCluster; ++r)
-      x[r] = rows[(b + r) * kPartials + lane];
-    add_rows(x, t);
-    if (row != nullptr) {
-#pragma unroll
-      for (int r = 0; r < kCluster; ++r)
-        row[kStateLen + (b + r) * kPartials + lane] = x[r];
-    }
-  }
-  w.sum[lane] = lanes_total(t);
-  __syncwarp();
-  step(s, w, a, lane);
-  __syncwarp();
-  for (int k = lane; k < kStateLen; k += 32) a.state[k] = s[k];
-}
-
-// what the two launches of a sharded iteration read, built once a
-// registration (kernels/registration.shard_plan)
-struct ShardPlan {
-  LoopArgs a;
-  Slab slab;
-  float* rows;            // this rank's kCluster rows (shard_stats_kernel)
-  const float* rows_all;  // the world's rows, rank-major (shard_step_kernel)
-  int nrows;              // world * kCluster
-  int layout;
-  cudaStream_t stream;
-};
 
 // the design's floor: the same cluster doing only each iteration's row
 // stores into every CTA (distributed shared memory), cluster.sync() and
@@ -1072,61 +1096,55 @@ int ws_reg_cluster_empty(float* out, int iterations, void* stream) {
   return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
-// the bytes of a sharded registration's plan
-int ws_reg_shard_plan_size() { return (int)sizeof(ShardPlan); }
+// the bytes of a sharded iteration's arguments (ShardArgs)
+int ws_reg_shard_args_size() { return (int)sizeof(ShardArgs); }
 
-// fill ``plan`` (ws_reg_shard_plan_size() bytes of host memory): the loop's
-// arguments as ws_reg_loop takes them, with the rank's slab after them
-// (iparams[15] x_lo, iparams[16] x_rows), this rank's (kCluster, 32) rows,
-// the (nrows, 32) gathered rows and the stream both kernels launch on.
-// ``trace``: null, or (max_it, 96 + nrows * 32) float32.
-int ws_reg_shard_plan(void* plan, float* state, const int* points,
-                      const unsigned char* mask, const int* plane0,
-                      const int* plane1, const int* plane2, const int* pos,
-                      const int* offset, unsigned char* c_valid, float* c_v,
-                      float* c_g, int* c_cc, float* trace, float* rows,
+// fill ``out`` (ws_reg_shard_args_size() bytes of host memory, copied to
+// the card by the wrapper): the loop's arguments as ws_reg_loop takes them
+// (no state), with the rank's slab after them (iparams[15] x_lo,
+// iparams[16] x_rows), the (2, kCarry) carry, this rank's (2, kCluster,
+// 32) rows and the (2, nrows, 32) gathered rows.  ``trace``: null, or
+// (max_it, 96 + nrows * 32) float32.
+int ws_reg_shard_args(void* out, const int* points, const unsigned char* mask,
+                      const int* plane0, const int* plane1, const int* plane2,
+                      const int* pos, const int* offset,
+                      unsigned char* c_valid, float* c_v, float* c_g,
+                      int* c_cc, float* trace, float* carry, float* rows,
                       const float* rows_all, int nrows, const int* iparams,
-                      const float* fparams, void* stream) {
+                      const float* fparams) {
   if (iparams[5] < kParity || iparams[5] > kExact || nrows < 1
       || nrows % kCluster != 0)
     return (int)cudaErrorInvalidValue;
-  ShardPlan* p = static_cast<ShardPlan*>(plan);
-  p->a = loop_args(state, points, mask, plane0, plane1, plane2, pos, offset,
+  ShardArgs* p = static_cast<ShardArgs*>(out);
+  p->a = loop_args(nullptr, points, mask, plane0, plane1, plane2, pos, offset,
                    c_valid, c_v, c_g, c_cc, trace, iparams, fparams);
   p->slab = Slab{iparams[15], iparams[16]};
+  p->carry = carry;
   p->rows = rows;
   p->rows_all = rows_all;
   p->nrows = nrows;
-  p->layout = iparams[5];
-  p->stream = static_cast<cudaStream_t>(stream);
   return 0;
 }
 
-// one launch of shard_stats_kernel: this rank's rows of one iteration
-int ws_reg_shard_stats(const void* plan) {
-  const ShardPlan* p = static_cast<const ShardPlan*>(plan);
-  switch (p->layout) {
+// one launch of shard_iter_kernel on ``stream``, the arguments at ``args``
+// (device memory, ws_reg_shard_args' block)
+int ws_reg_shard_iter(const void* args, int layout, int parity,
+                      void* stream) {
+  const ShardArgs* p = static_cast<const ShardArgs*>(args);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (parity != 0 && parity != 1) return (int)cudaErrorInvalidValue;
+  switch (layout) {
     case kParity:
-      shard_stats_kernel<kParity><<<kCluster, kThreads, 0, p->stream>>>(
-          p->a, p->slab, p->rows);
+      shard_iter_kernel<kParity><<<kCluster, kThreads, 0, st>>>(p, parity);
       break;
     case kPacked:
-      shard_stats_kernel<kPacked><<<kCluster, kThreads, 0, p->stream>>>(
-          p->a, p->slab, p->rows);
+      shard_iter_kernel<kPacked><<<kCluster, kThreads, 0, st>>>(p, parity);
       break;
     case kExact:
-      shard_stats_kernel<kExact><<<kCluster, kThreads, 0, p->stream>>>(
-          p->a, p->slab, p->rows);
+      shard_iter_kernel<kExact><<<kCluster, kThreads, 0, st>>>(p, parity);
       break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// one launch of shard_step_kernel: the step on the gathered rows
-int ws_reg_shard_step(const void* plan) {
-  const ShardPlan* p = static_cast<const ShardPlan*>(plan);
-  shard_step_kernel<<<1, 32, 0, p->stream>>>(p->a, p->rows_all, p->nrows);
   return (int)cudaGetLastError();
 }
 

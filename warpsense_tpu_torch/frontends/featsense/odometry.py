@@ -57,10 +57,15 @@ def _norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False):
 # ------------------------------------------------------------------ primitives
 
 def knn(query: torch.Tensor, map_pts: torch.Tensor, map_mask: torch.Tensor,
-        k: int):
+        k: int, *, exact: bool = False):
     """Exact brute-force k-NN: (Nq, k) indices and squared distances,
     nearest first, ties to the lowest map index (``jax.lax.top_k`` of the
     negated distances).  Masked map entries are +inf.
+
+    The selection is always exact, so ``exact`` changes nothing: JAX's
+    ``knn`` takes the same exact ``top_k`` off a TPU whatever ``exact``
+    says, and only on a TPU without ``exact`` its approximate
+    ``approx_max_k`` (recall ~0.95), which the port does not copy.
 
     Selection runs on one int64 key per pair, (float32 distance bits made
     order-preserving) << 32 | index, so ``topk`` has no ties to order."""
@@ -74,6 +79,7 @@ def knn(query: torch.Tensor, map_pts: torch.Tensor, map_mask: torch.Tensor,
     idx = torch.arange(map_pts.shape[0], dtype=torch.int64,
                        device=d2.device)
     key = ordered.to(torch.int64) * (1 << 32) + idx[None, :]
+    del exact
     _, pos = torch.topk(key, k, dim=-1, largest=False, sorted=True)
     return pos, torch.gather(d2, 1, pos)
 

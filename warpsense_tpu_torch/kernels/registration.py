@@ -1,7 +1,6 @@
 """Wrappers of the registration kernels of ``csrc/registration.cu``: the
 loop kernel (``ws_reg_loop``, a whole GN or LM registration in one launch)
-and the sharded loop's two halves (``ws_reg_shard_stats``,
-``ws_reg_shard_step``).
+and the sharded loop's iteration (``ws_reg_shard_iter``).
 
 They replace no TPU kernel: the JAX package runs its registration loops as
 XLA code inside one ``lax.while_loop`` (``warpsense_tpu/ops/registration.py``
@@ -11,13 +10,17 @@ XLA code inside one ``lax.while_loop`` (``warpsense_tpu/ops/registration.py``
 that loop on the card as one thread-block cluster: K3 (an iteration's
 statistics) and K4 (the step) are its two halves, and its carry is the
 state buffer of ``ops/registration.py`` (``S_*``).  The sharded loop
-launches them apart, K3 on the rank's slab (``shard_stats``) and K4 on
-every rank's rows (``shard_step``), with the collective between them
-(``parallel/sharded.run_registration_sharded``).  A CUDA state launches
-the kernels (or raises); a CPU state runs the plain versions,
-``reg_stats_plain`` and ``reg_step_plain``.  Each wrapper counts its
-launches (``reg_loop.launches``, ``shard_stats.launches``,
-``shard_step.launches``).
+launches ``shard_iter_kernel`` once an iteration (``shard_iter``): K4 of
+the iteration before on every rank's gathered rows, then K3 of this one
+on the rank's slab, with the collective between two launches
+(``parallel/sharded.run_registration_sharded``); a chunk of them can be
+captured as a CUDA graph (``capture_chunk``) and replayed
+(``replay_chunk``).  A CUDA state launches the kernels (or raises); a CPU
+state runs the plain versions, ``reg_stats_plain`` and ``reg_step_plain``
+(``fused_iteration_plain`` for the sharded iteration).  Each wrapper
+counts its launches (``reg_loop.launches``, ``shard_iter.launches``; a
+replayed chunk counts its launches, and ``shard_iter.replays`` and
+``shard_iter.captures`` count the graphs).
 """
 from __future__ import annotations
 
@@ -27,10 +30,10 @@ import torch
 
 from typing import NamedTuple
 
-from ..ops.registration import (CHUNK, LAYOUT_PARITY, PARTIALS, S_I,
-                                STATE_LEN, RegProblem, loop_plain,
-                                packed_shifts, reg_stats_plain,
-                                reg_step_plain, slab_of, stopped,
+from ..ops.registration import (CARRY_LEN, CHUNK, LAYOUT_PARITY, PARTIALS,
+                                STATE_LEN, RegProblem,
+                                fused_iteration_plain, loop_plain,
+                                packed_shifts, reg_stats_plain, slab_of,
                                 trace_width)
 from . import _build
 
@@ -70,13 +73,12 @@ def _lib():
         lib.ws_reg_cluster_empty.restype = _I
         lib.ws_reg_empty.argtypes = [_VP]
         lib.ws_reg_empty.restype = _I
-        lib.ws_reg_shard_plan_size.argtypes = []
-        lib.ws_reg_shard_plan_size.restype = _I
-        lib.ws_reg_shard_plan.argtypes = [_VP] * 16 + [_I] + [_VP] * 3
-        lib.ws_reg_shard_plan.restype = _I
-        for fn in (lib.ws_reg_shard_stats, lib.ws_reg_shard_step):
-            fn.argtypes = [_VP]
-            fn.restype = _I
+        lib.ws_reg_shard_args_size.argtypes = []
+        lib.ws_reg_shard_args_size.restype = _I
+        lib.ws_reg_shard_args.argtypes = [_VP] * 16 + [_I] + [_VP] * 2
+        lib.ws_reg_shard_args.restype = _I
+        lib.ws_reg_shard_iter.argtypes = [_VP, _I, _I, _VP]
+        lib.ws_reg_shard_iter.restype = _I
     return lib
 
 
@@ -208,97 +210,147 @@ def reg_loop(state: torch.Tensor, prob: RegProblem, *, trace=None,
 reg_loop.launches = 0
 
 
-class ShardPlan(NamedTuple):
-    """One sharded registration's kernels and their buffers, checked and
-    bound once (``shard_plan``): the carry, the problem (the rank's slab),
-    this rank's rows of an iteration, the world's gathered rows, the trace,
-    the per-point cache of the gather freeze (a dict on the CPU, device
-    buffers on the card) and, on the card, the C plan (host memory holding
-    the kernels' arguments and the stream they launch on) and the tensors
-    it points into."""
-    state: torch.Tensor
-    prob: RegProblem
+class ShardBuffers(NamedTuple):
+    """What the sharded iterations of one kind of registration read and
+    write, kept from one registration to the next (a captured chunk holds
+    their addresses): the carry, (2, CARRY_LEN), double-buffered by a
+    launch's parity; this rank's rows of statistics, (2, k, PARTIALS), k
+    = ``CLUSTER`` on the card and 1 on the CPU; the world's gathered rows,
+    (2, nrows, PARTIALS), rank-major (``rows`` itself at a world of one
+    without a collective); and on the card the arguments' block on the
+    device and its pinned staging copy on the host."""
+    carry: torch.Tensor
     rows: torch.Tensor
     rows_all: torch.Tensor
+    args: torch.Tensor | None
+    host: torch.Tensor | None
+
+
+def shard_buffers(device, world: int, *, shared: bool = False
+                  ) -> ShardBuffers:
+    """Zeroed ``ShardBuffers`` on ``device`` for a world of ``world``
+    ranks; ``shared``: the gathered rows are this rank's own (a world of
+    one without a collective)."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if not cuda and device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    k = CLUSTER if cuda else 1
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = torch.zeros((2, k, PARTIALS), **f32)
+    if shared and world != 1:
+        raise ValueError("only a world of one shares its rows")
+    rows_all = rows if shared else torch.zeros((2, world * k, PARTIALS),
+                                               **f32)
+    args = host = None
+    if cuda:
+        n = _lib().ws_reg_shard_args_size()
+        args = torch.zeros(n, dtype=torch.uint8, device=device)
+        host = torch.zeros(n, dtype=torch.uint8).pin_memory()
+    return ShardBuffers(torch.zeros((2, CARRY_LEN), **f32), rows, rows_all,
+                        args, host)
+
+
+class ShardPlan(NamedTuple):
+    """One sharded registration bound to its buffers (``shard_plan``): the
+    problem (the rank's slab), the trace, the per-point cache of the
+    gather freeze (a dict on the CPU, device buffers on the card) and the
+    tensors the arguments point into."""
+    bufs: ShardBuffers
+    prob: RegProblem
     trace: torch.Tensor | None
     cache: object
-    block: object
     keep: tuple
 
 
-def shard_plan(state: torch.Tensor, prob: RegProblem, rows: torch.Tensor,
-               rows_all: torch.Tensor, *, trace=None) -> ShardPlan:
-    """Bind one sharded registration: ``rows`` is this rank's float32
-    (``CLUSTER``, PARTIALS) rows on a CUDA state (one row on a CPU state),
-    ``rows_all`` the world's rows, rank-major, that the collective fills
-    (``rows`` itself at a world of one).  ``trace``: None, or a zeroed
-    float32 (max_iterations, ``trace_width(len(rows_all))``) tensor on the
-    state's device.  On the card the inputs are checked and the kernels'
-    arguments built here, once a registration, and both kernels launch on
-    the stream current now; a build failure raises."""
-    cuda = state.device.type == "cuda"
-    if not cuda and state.device.type != "cpu":
-        raise ValueError(f"unsupported device {state.device}")
-    k = CLUSTER if cuda else 1
-    for t, what in ((rows, "rows"), (rows_all, "rows_all")):
-        if (t.device != state.device or t.dtype != torch.float32
-                or t.dim() != 2 or t.shape[1] != PARTIALS
-                or t.shape[0] % k or not t.is_contiguous()):
-            raise ValueError(f"{what} must be contiguous float32 (m * {k}, "
-                             f"{PARTIALS}) on the state's device")
-    if rows.shape[0] != k:
-        raise ValueError(f"rows must hold {k} rows")
-    _check_trace(trace, state, prob, trace_width(rows_all.shape[0]))
+def shard_plan(bufs: ShardBuffers, prob: RegProblem, *,
+               trace=None) -> ShardPlan:
+    """Bind one sharded registration of ``prob`` to ``bufs`` (whose carry
+    slot 0 holds its initial carry).  ``trace``: None, or a zeroed float32
+    (max_iterations, ``trace_width(nrows)``) tensor on the buffers'
+    device.  On the card the inputs are checked and the kernel's
+    arguments written to ``bufs.args`` (an asynchronous copy from pinned
+    memory on the current stream); a build failure raises."""
+    carry = bufs.carry
+    cuda = carry.device.type == "cuda"
+    nrows = bufs.rows_all.shape[1]
+    _check_trace(trace, carry, prob, trace_width(nrows))
     if not cuda:
-        return ShardPlan(state, prob, rows, rows_all, trace, {}, None, ())
-    ptrs, ip, fp, keep = _kernel_args(state, prob)
+        return ShardPlan(bufs, prob, trace, {}, ())
+    ptrs, ip, fp, keep = _kernel_args(carry[0, :STATE_LEN], prob)
     lib = _lib()
-    block = ctypes.create_string_buffer(lib.ws_reg_shard_plan_size())
-    rc = lib.ws_reg_shard_plan(
-        block, *ptrs, None if trace is None else trace.data_ptr(),
-        rows.data_ptr(), rows_all.data_ptr(), rows_all.shape[0],
-        ctypes.cast(ip, _VP), ctypes.cast(fp, _VP),
-        torch.cuda.current_stream(state.device).cuda_stream)
-    _build.check(rc, "the sharded registration's plan")
-    return ShardPlan(state, prob, rows, rows_all, trace, keep[-1], block,
-                     keep)
+    rc = lib.ws_reg_shard_args(
+        bufs.host.data_ptr(), *ptrs[1:],
+        None if trace is None else trace.data_ptr(), carry.data_ptr(),
+        bufs.rows.data_ptr(), bufs.rows_all.data_ptr(), nrows,
+        ctypes.cast(ip, _VP), ctypes.cast(fp, _VP))
+    _build.check(rc, "the sharded iteration's arguments")
+    bufs.args.copy_(bufs.host, non_blocking=True)
+    return ShardPlan(bufs, prob, trace, keep[-1], keep)
 
 
-def shard_stats(plan: ShardPlan) -> None:
-    """K3 of this rank for one iteration into ``plan.rows``: on the card
-    one launch of ``shard_stats_kernel`` (each of the ``CLUSTER`` CTAs its
-    row; a failed launch raises), on the CPU ``reg_stats_plain`` on the
-    slab.  Nothing on a finished carry."""
-    if plan.block is None:
-        row = reg_stats_plain(plan.state, plan.prob, plan.cache)
-        if row is not None:
-            plan.rows.copy_(row)
+def shard_iter(plan: ShardPlan, parity: int) -> None:
+    """One sharded iteration from the carry slot ``parity`` into the other
+    one: the step of the slot's iteration on the gathered rows of slot
+    ``parity`` when they are pending, then this rank's statistics of the
+    next iteration into slot ``1 - parity`` of its rows.  On the card one
+    launch of ``shard_iter_kernel`` on the current stream (counted unless
+    the stream is being captured; a failed launch raises), on the CPU
+    ``fused_iteration_plain``."""
+    b = plan.bufs
+    if b.args is None:
+        fused_iteration_plain(b.carry[parity], b.carry[1 - parity],
+                              b.rows_all[parity], b.rows[1 - parity],
+                              plan.prob, plan.cache, plan.trace)
         return
-    _build.check(_lib().ws_reg_shard_stats(plan.block),
-                 "the sharded statistics kernel")
-    shard_stats.launches += 1
+    dev = b.carry.device
+    _build.check(_lib().ws_reg_shard_iter(
+        b.args.data_ptr(), plan.prob.layout, parity,
+        torch.cuda.current_stream(dev).cuda_stream),
+        "the sharded iteration kernel")
+    if not torch.cuda.is_current_stream_capturing():
+        shard_iter.launches += 1
 
 
-def shard_step(plan: ShardPlan) -> None:
-    """K4 on every rank's rows (``plan.rows_all``), in place on the carry:
-    on the card one launch of ``shard_step_kernel`` (a failed launch
-    raises), on the CPU ``reg_step_plain``; with a trace, row i gets the
-    carry before step i and the rows.  Nothing on a finished carry."""
-    if plan.block is None:
-        state, rows = plan.state, plan.rows_all
-        if plan.trace is not None and not stopped(state, plan.prob):
-            t = plan.trace[int(state[S_I])]
-            t[:STATE_LEN] = state
-            t[STATE_LEN:] = rows.reshape(-1)
-        reg_step_plain(state, rows, plan.prob)
-        return
-    _build.check(_lib().ws_reg_shard_step(plan.block),
-                 "the sharded step kernel")
-    shard_step.launches += 1
+def capture_chunk(plan: ShardPlan, gather, chunk: int = CHUNK):
+    """A CUDA graph of one chunk: ``chunk`` times (``shard_iter`` of
+    parity 0, 1, 0, ..., then ``gather(q)``, the collective that fills
+    slot q = 1 - parity of the gathered rows), captured on a side stream
+    of the carry's device.  Nothing runs while it is captured; the graph
+    reads the buffers' arguments block at each replay, so it serves every
+    registration planned on the same buffers.  ``chunk`` must be even
+    (the carry ends in slot 0).  A failed capture raises."""
+    if chunk % 2:
+        raise ValueError("a captured chunk takes an even number of "
+                         "iterations")
+    dev = plan.bufs.carry.device
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for j in range(chunk):
+                shard_iter(plan, j % 2)
+                gather(1 - j % 2)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    shard_iter.captures += 1
+    return graph
 
 
-shard_stats.launches = 0
-shard_step.launches = 0
+def replay_chunk(graph, chunk: int = CHUNK) -> None:
+    """Replay a ``capture_chunk`` graph on the current stream: ``chunk``
+    launches of ``shard_iter_kernel`` with their collectives."""
+    graph.replay()
+    shard_iter.launches += chunk
+    shard_iter.replays += 1
+
+
+shard_iter.launches = 0
+shard_iter.replays = 0
+shard_iter.captures = 0
 
 
 def launch_cluster_empty(out: torch.Tensor, iterations: int) -> None:

@@ -118,6 +118,18 @@ def jacobian_stats_fields(fields: RegistrationFields, pos, offset, points,
     return Js.T @ Js, Js.T @ v, torch.sum(torch.abs(v)), torch.sum(vf)
 
 
+def jacobian_stats(state: LocalMapState, points, mask, total_transform, *,
+                   size, resolution: int, normalize_gradient: bool = False):
+    """One iteration's statistics straight from the map state, as the JAX
+    package's parity-test API takes them: ``precompute_fields``, then
+    ``jacobian_stats_fields`` (the hot path computes the fields once a map
+    change and reuses them)."""
+    return jacobian_stats_fields(
+        precompute_fields(state), state.pos, state.offset, points, mask,
+        total_transform, size=size, resolution=resolution,
+        normalize_gradient=normalize_gradient)
+
+
 def register_cloud(state: LocalMapState, points, mask, pretransform, *,
                    size, resolution: int, max_iterations: int,
                    it_weight_gradient: float, epsilon: float,
@@ -407,6 +419,11 @@ LAYOUT_PARITY, LAYOUT_PACKED, LAYOUT_EXACT = 0, 1, 2
 # the plain loop's iterations between two reads of its header: a finished
 # state ignores the iterations after it, so the size changes no bit
 CHUNK = 8
+# the sharded loop's carry slot: the state, then PENDING (1.0: the rows of
+# the state's iteration were computed and are being gathered; the next
+# iteration steps on them first), then zeros
+CARRY_LEN = STATE_LEN + 32
+PENDING = STATE_LEN
 
 _UPPER = torch.triu_indices(6, 6)
 _FULL = torch.tensor([[k for k in range(21)
@@ -465,11 +482,15 @@ def owned_index_fn(pos, offset, size, lo: int, hi: int):
     return index_fn
 
 
-def init_state(prob: RegProblem, pretransform, device) -> torch.Tensor:
+def init_state(prob: RegProblem, pretransform, device, *,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """The loop's initial carry on ``device``, made there: fills and
     device copies only (no host copy when ``pretransform`` is on it
-    already; an indexed assignment of a Python number would be one)."""
-    s = torch.zeros(STATE_LEN, dtype=torch.float32, device=device)
+    already; an indexed assignment of a Python number would be one).
+    ``out``: a float32 tensor of at least STATE_LEN on ``device`` to write
+    it into (zeroed past STATE_LEN)."""
+    s = (torch.zeros(STATE_LEN, dtype=torch.float32, device=device)
+         if out is None else out.zero_())
     p = pretransform.detach().to(device=device,
                                  dtype=torch.float32).reshape(16)
     s[S_TRIAL:S_TRIAL + 16].copy_(p)
@@ -759,6 +780,41 @@ def loop_plain(state: torch.Tensor, prob: RegProblem, stats_row, *,
                 t[:STATE_LEN] = state
                 t[STATE_LEN:STATE_LEN + PARTIALS] = row.reshape(PARTIALS)
             reg_step_plain(state, row, prob)
+
+
+def fused_iteration_plain(src: torch.Tensor, dst: torch.Tensor,
+                          rows_in: torch.Tensor, rows_out: torch.Tensor,
+                          prob: RegProblem, cache: dict,
+                          trace=None) -> None:
+    """Plain version of the sharded loop's fused iteration
+    (``shard_iter_kernel``): from the carry slot ``src`` into the slot
+    ``dst`` (each CARRY_LEN floats).  When ``src``'s PENDING flag is set,
+    first the step of its iteration on the world's gathered rows
+    ``rows_in`` (``reg_step_plain``; with a trace, row i gets the carry
+    before step i and the rows), then, unless the carry stopped, the
+    statistics of the next iteration on the same carry
+    (``reg_stats_plain``) into ``rows_out``, which sets PENDING in
+    ``dst``."""
+    state = src[:STATE_LEN].clone()
+    if bool(src[PENDING] != 0):
+        if trace is not None:
+            t = trace[int(state[S_I])]
+            t[:STATE_LEN] = state
+            t[STATE_LEN:] = rows_in.reshape(-1)
+        reg_step_plain(state, rows_in, prob)
+    dst[:STATE_LEN] = state
+    row = reg_stats_plain(state, prob, cache)
+    if row is not None:
+        rows_out.copy_(row.reshape(rows_out.shape))
+    dst[PENDING] = float(row is not None)
+
+
+def shard_reads(iterations: int, chunk: int = CHUNK) -> int:
+    """Header reads of a sharded registration of ``iterations`` steps in
+    chunks of ``chunk`` fused iterations: each launch steps on the rows
+    of the one before, so the first chunk takes ``chunk - 1`` steps and
+    the loop ends after ``iterations + 1`` launches."""
+    return -(-(iterations + 1) // chunk)
 
 
 def host_loop(prob: RegProblem, pretransform, stats_row, *,

@@ -105,7 +105,8 @@ def tsdf_update(state: LocalMapState, points: torch.Tensor,
                 points_mask: torch.Tensor, scanner_pos: torch.Tensor,
                 up: torch.Tensor, *, size: tuple[int, int, int], tau: int,
                 max_weight: int, resolution: int, max_steps: int,
-                max_isteps: int, channels: int = 128, vfov_deg: float = 45.0,
+                max_isteps: int, pos_mode: str = "center",
+                channels: int = 128, vfov_deg: float = 45.0,
                 x_rows: tuple[int, int] | None = None) -> LocalMapState:
     """One ray-march fusion step, IN PLACE on ``state.value`` /
     ``state.weight``; returns ``state``.  ``x_rows=(lo, hi)``: the state
@@ -114,9 +115,13 @@ def tsdf_update(state: LocalMapState, points: torch.Tensor,
     its own rows enter its scatter-min.
 
     points: (N, 3) int32 mm (map frame); points_mask: (N,) bool;
-    scanner_pos: (3,) int32 voxel coords (rays start at its center); up:
-    (3,) int32 MR-scaled map-frame sensor up vector.  (The JAX function's
-    ``pos_mode="corner"`` serves its golden-line tests only.)"""
+    scanner_pos: (3,) int32 voxel coords; up: (3,) int32 MR-scaled
+    map-frame sensor up vector.  ``pos_mode``: rays start at the scanner
+    voxel's "center" (the reference's GPU flavour) or its "corner" (its
+    CPU flavour, cpu/update_tsdf.cpp:410), as the JAX function takes it;
+    any other value raises."""
+    if pos_mode not in ("center", "corner"):
+        raise ValueError(f"unknown pos_mode {pos_mode!r}")
     lo, hi = (0, size[0]) if x_rows is None else x_rows
     if tuple(state.value.shape) != (hi - lo, *size[1:]):
         raise ValueError(f"state shape {tuple(state.value.shape)} != "
@@ -133,7 +138,9 @@ def tsdf_update(state: LocalMapState, points: torch.Tensor,
     MR = MATRIX_RESOLUTION
 
     scanner_pos = scanner_pos.to(device=dev, dtype=i32)
-    pos_mm = scanner_pos * resolution + resolution // 2
+    pos_mm = scanner_pos * resolution
+    if pos_mode == "center":
+        pos_mm = pos_mm + resolution // 2
     points = points.to(device=dev, dtype=i32)
     direction = points - pos_mm
     distance = _floor_norm(direction)

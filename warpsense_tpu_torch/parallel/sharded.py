@@ -17,18 +17,20 @@ process that owns one device and one x-slab of the window:
   (rank 0's left neighbour is rank n-1: the window is a torus) and runs
   kernel K2 on its slab padded with the two halo planes;
 * **registration** (``run_registration_sharded``): the loop's carry lives
-  on every rank's device, the same bits on each.  An iteration is K3 on
-  the points whose cells the rank owns (``shard_stats_kernel``: a row of
-  statistics a CTA), the ranks' rows all-gathered in rank order, and K4 on
-  every rank on those rows (``shard_step_kernel``, which sums them in one
-  fixed order), so every rank's solve, stop test and pose update see the
-  same bits with nothing broadcast (an all-reduce's order depends on the
-  algorithm and the backend).  The host enqueues ``CHUNK`` iterations and
-  then reads the carry's header once;
+  on every rank's device, the same bits on each.  An iteration is one
+  launch of ``shard_iter_kernel``: K4 of the iteration before on the
+  ranks' rows, gathered in rank order (summed in one fixed order, so every
+  rank's solve, stop test and pose update see the same bits with nothing
+  broadcast: an all-reduce's order depends on the algorithm and the
+  backend), then K3 on the points whose cells the rank owns, a row of
+  statistics a CTA; then the rows' all-gather.  The host enqueues
+  ``CHUNK`` iterations and then reads the carry's header once; over NCCL
+  and without a group the chunk is a CUDA graph, captured once per kind
+  of registration and replayed;
 * the backend is the group's: with NCCL halos and rows stay on the device
   and the collective runs in the stream; with gloo (which moves CPU
   tensors) they pass through host memory, one copy each way an iteration
-  for the rows.
+  for the rows, and the chunk is a host loop.
 
 A ``Mesh`` without a group is a world of one (no collectives): the whole
 window on one device.  Keep the JAX names; the functions take the same
@@ -37,7 +39,7 @@ arguments plus ``mesh``.
 from __future__ import annotations
 
 import time
-from typing import NamedTuple
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -45,8 +47,8 @@ import torch.distributed as dist
 
 from ..map.local_map import LocalMapState
 from ..ops.registration import (CHUNK, LAYOUT_EXACT, LAYOUT_PACKED,
-                                LAYOUT_PARITY, PARTIALS, S_ACC, S_ERR, S_FIN,
-                                S_HEAD, S_I, S_TRIAL, PackedFields,
+                                LAYOUT_PARITY, S_ACC, S_ERR, S_FIN, S_HEAD,
+                                S_I, S_TRIAL, STATE_LEN, PackedFields,
                                 PackedFields2, RegistrationFields, RegProblem,
                                 count_registration, init_state,
                                 precompute_fields, stopped)
@@ -55,17 +57,24 @@ from ..ops.tsdf_projective import check_fusion_config, fusion_inputs
 from ..utils.device import resolve_device
 
 
-class Mesh(NamedTuple):
-    """One rank's view of the x-sharded layout."""
+@dataclass(frozen=True)
+class Mesh:
+    """One rank's view of the x-sharded layout.  ``loops``: this mesh's
+    sharded registration loops by kind (their buffers and captured chunks,
+    ``_Loop``), kept from one registration to the next; every mesh,
+    ``dataclasses.replace``'s too, starts with none."""
     group: object | None     # torch.distributed ProcessGroup; None: no group
     rank: int
     world: int
     device: torch.device
+    loops: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
 
 
 def make_mesh(device="cuda", group=None) -> Mesh:
     """This process's ``Mesh`` over ``group`` (default: the initialized
-    default group; a world of one when none is initialized)."""
+    default group; a world of one when none is initialized), with its own
+    ``loops``."""
     device = resolve_device(device)
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
@@ -182,29 +191,60 @@ def any_rank(mesh: Mesh, flag: bool) -> bool:
     return bool(t.item())
 
 
-def _rows_gather(mesh: Mesh, rows: torch.Tensor):
-    """(rows_all, gather): the world's rows of statistics, rank-major, and
-    the collective that fills them from every rank's ``rows``.  Without a
-    group ``rows_all`` is ``rows`` and there is no collective; with NCCL
-    one all-gather on the device in the current stream; with gloo through
-    host memory (on the card a copy each way, so a sync an iteration)."""
+def rows_gather(mesh: Mesh, bufs):
+    """``gather(q)``: the collective that fills slot q of ``bufs.rows_all``
+    with every rank's slot q of ``bufs.rows``, rank-major.  Without a group
+    the rows are their own gathered rows and there is none; with NCCL one
+    all-gather on the device in the current stream; with gloo through host
+    memory (on the card a copy each way, so a sync an iteration)."""
     if mesh.group is None:
-        return rows, lambda: None
-    shape = (mesh.world * rows.shape[0], rows.shape[1])
+        return lambda q: None
+    rows, rows_all = bufs.rows, bufs.rows_all
     if dist.get_backend(mesh.group) != "gloo":
-        rows_all = torch.empty(shape, dtype=rows.dtype, device=rows.device)
-        return rows_all, lambda: dist.all_gather_into_tensor(
-            rows_all, rows, group=mesh.group)
-    host = torch.empty(shape, dtype=rows.dtype)
-    parts = list(host.chunk(mesh.world))
-    if rows.device.type == "cpu":
-        return host, lambda: dist.all_gather(parts, rows, group=mesh.group)
-    rows_all = torch.empty(shape, dtype=rows.dtype, device=rows.device)
+        return lambda q: dist.all_gather_into_tensor(
+            rows_all[q], rows[q], group=mesh.group)
+    cpu = rows.device.type == "cpu"
+    host = rows_all if cpu else torch.empty(rows_all.shape,
+                                            dtype=rows_all.dtype)
+    parts = [list(host[q].chunk(mesh.world)) for q in (0, 1)]
+    if cpu:
+        return lambda q: dist.all_gather(parts[q], rows[q], group=mesh.group)
 
-    def gather():
-        dist.all_gather(parts, rows.cpu(), group=mesh.group)
-        rows_all.copy_(host)
-    return rows_all, gather
+    def gather(q):
+        dist.all_gather(parts[q], rows[q].cpu(), group=mesh.group)
+        rows_all[q].copy_(host[q])
+    return gather
+
+
+class _Loop:
+    """One kind of sharded registration (a mesh's device, a layout, a
+    chunk size): its buffers, its collective, whether one registration ran
+    (the warm-up before a capture) and its captured chunk."""
+
+    def __init__(self, mesh: Mesh, device, graphable: bool):
+        from ..kernels.registration import shard_buffers
+        self.bufs = shard_buffers(device, mesh.world,
+                                  shared=mesh.group is None)
+        self.gather = rows_gather(mesh, self.bufs)
+        self.graphable = graphable
+        self.warm = False
+        self.graph = None
+
+
+def _loop(mesh: Mesh, prob: RegProblem, device, chunk: int) -> _Loop:
+    """The ``_Loop`` of this kind of registration in ``mesh.loops``, made
+    at its first one.  Its chunk is captured on the card with NCCL or no
+    group, and an even ``chunk`` (the carry ends where it starts, in slot
+    0); gloo's rows pass through host memory, which a graph cannot
+    capture, so its chunk stays a host loop (the backend's name
+    decides), as does an odd chunk."""
+    device = torch.device(device)
+    key = (device, prob.layout, chunk)
+    if key not in mesh.loops:
+        graphable = device.type == "cuda" and chunk % 2 == 0 and (
+            mesh.group is None or dist.get_backend(mesh.group) == "nccl")
+        mesh.loops[key] = _Loop(mesh, device, graphable)
+    return mesh.loops[key]
 
 
 def run_registration_sharded(prob: RegProblem, pretransform, mesh: Mesh, *,
@@ -213,40 +253,51 @@ def run_registration_sharded(prob: RegProblem, pretransform, mesh: Mesh, *,
     ``x_rows``) on every rank of ``mesh``; returns (final state, its
     header as a list of floats), the same bits on every rank.
 
-    The carry starts from ``init_state`` on the device of ``prob.points``.
-    Then, ``chunk`` iterations at a time: this rank's statistics
-    (``kernels.registration.shard_stats``), the ranks' rows gathered in
-    rank order, the step on them (``shard_step``); then one read of the
-    header, counted in ``run_registration.syncs`` (a CUDA state) and
-    ``calls``.  On the card both halves are kernels, launched whether or
-    not the carry has finished (they return at once on a finished one;
-    a build or launch failure raises); on the CPU their plain versions, one
-    row a rank, and a chunk ends where the loop does.  ``trace``: as
+    The carry starts from ``init_state`` in slot 0 of the kind's carry on
+    the device of ``prob.points``.  Then, ``chunk`` iterations at a time:
+    the fused iteration (``kernels.registration.shard_iter``: the step on
+    the rows gathered last, then this rank's statistics), the ranks' rows
+    gathered in rank order; then one read of the header, counted in
+    ``run_registration.syncs`` (a CUDA state) and ``calls``.  On the card
+    the iteration is a kernel, launched whether or not the carry has
+    finished (it returns at once on a finished one; a build, launch or
+    capture failure raises).  The first registration of a kind launches
+    from the host; from the second on, where ``_loop`` lets it, the chunk
+    is its captured CUDA graph, replayed.  On the CPU the plain version,
+    one row a rank, and a chunk ends where the loop does.  ``trace``: as
     ``shard_plan`` takes it."""
-    from ..kernels.registration import (CLUSTER, shard_plan, shard_stats,
-                                        shard_step)
+    from ..kernels.registration import (capture_chunk, replay_chunk,
+                                        shard_iter, shard_plan)
     t0 = time.perf_counter()
     dev = prob.points.device
-    state = init_state(prob, pretransform, dev)
-    cuda = state.is_cuda
-    rows = torch.zeros((CLUSTER if cuda else 1, PARTIALS),
-                       dtype=torch.float32, device=dev)
-    rows_all, gather = _rows_gather(mesh, rows)
-    plan = shard_plan(state, prob, rows, rows_all, trace=trace)
-    reads = 0
+    loop = _loop(mesh, prob, dev, chunk)
+    carry = loop.bufs.carry
+    cuda = carry.is_cuda
+    # every registration starts at parity 0: slot 0 whole (PENDING clear);
+    # the first launch writes all of slot 1 that a launch reads
+    init_state(prob, pretransform, dev, out=carry[0])
+    plan = shard_plan(loop.bufs, prob, trace=trace)
+    replay = loop.graphable and loop.warm
+    if replay and loop.graph is None:
+        loop.graph = capture_chunk(plan, loop.gather, chunk)
+    parity = reads = 0
     while True:
-        for _ in range(chunk):
-            if not cuda and stopped(state, prob):
-                break
-            shard_stats(plan)
-            gather()
-            shard_step(plan)
-        head = state[:S_HEAD].tolist()
+        if replay:
+            replay_chunk(loop.graph, chunk)
+        else:
+            for _ in range(chunk):
+                if not cuda and stopped(carry[parity, :STATE_LEN], prob):
+                    break
+                shard_iter(plan, parity)
+                loop.gather(1 - parity)
+                parity ^= 1
+        head = carry[parity, :S_HEAD].tolist()
         reads += 1
         if head[S_FIN] != 0 or head[S_I] >= prob.max_iterations:
             break
+    loop.warm = True
     count_registration(head, reads if cuda else 0, t0)
-    return state, head
+    return carry[parity, :STATE_LEN].clone(), head
 
 
 def _slab_problem(mesh: Mesh, size, **kw) -> RegProblem:

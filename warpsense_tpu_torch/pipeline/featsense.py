@@ -53,8 +53,9 @@ class FeatsenseMapping:
     poses; produces refined poses and the fused TSDF map on ``device``
     ("cuda", the default, or "cpu"; a CUDA device without a GPU raises).
 
-    ``fusion``: "raymarch" (the default), "auto", "projective-level" or
-    "projective" (pipeline/fusion_backend.py).  ``resume=True`` reopens the
+    ``fusion``: "raymarch" (the default), "auto", "projective-level",
+    "pallas" (the same path) or "projective"
+    (pipeline/fusion_backend.py).  ``resume=True`` reopens the
     map, reloads the window around the last persisted pose and applies that
     pose as a world-frame offset to the restarted odometry.
     ``in_memory_map=True`` keeps the global map in memory (no h5py).

@@ -50,7 +50,8 @@ def resolve_fusion(fusion: str, *, size, channels: int,
                    columns: int = 1024) -> str:
     """"auto" -> "projective-level" (the production level grid with the
     attitude fallback) when the window fits K1's 32-bit voxel index;
-    explicit names pass through.  K1 takes any z extent, channel count and
+    explicit names pass through ("pallas", the JAX package's name for its
+    TPU level kernel, included).  K1 takes any z extent, channel count and
     column count: its level sweep stages two beam rows per warp in shared
     memory, which holds up to 1,816 channels on an H100 (after opting in
     to the 232,448 bytes a block can have); beyond that its wrapper runs
@@ -76,12 +77,16 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
     needs ``max_steps``/``max_isteps`` from ``plan_raymarch``),
     "projective" (bins with the sensor attitude), "projective-level" (bins
     on the level map-aligned grid inside the tilt envelope and falls back
-    to the attitude grid beyond it) or "auto"."""
+    to the attitude grid beyond it), "pallas" or "auto".  "pallas" names
+    the JAX package's TPU kernel (``kernels/tsdf_pallas.py``), which gives
+    "projective-level"'s bits: here it is that path, K1's level sweep with
+    its general sweep past the tilt envelope."""
     m = params.map
     fusion = resolve_fusion(fusion, size=size,
                             channels=params.lidar.channels,
                             columns=params.lidar.hresolution)
-    if fusion not in ("raymarch", "projective", "projective-level"):
+    if fusion not in ("raymarch", "projective", "projective-level",
+                      "pallas"):
         raise ValueError(f"unknown fusion {fusion!r}")
     scanner_pos = torch.as_tensor(
         np.floor(np.asarray(pose_mm)[:3, 3] / m.resolution).astype(np.int32),

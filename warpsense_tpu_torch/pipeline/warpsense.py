@@ -54,7 +54,8 @@ class WarpsenseApp:
     h5py needed, nothing persisted).  ``capacity``: static preprocessed-
     cloud capacity.  ``max_range_mm``: the ray march's range budget
     (``plan_raymarch``).  ``fusion``: "auto", "projective-level",
-    "projective" or "raymarch" (see pipeline/fusion_backend.py).
+    "pallas" (the same path), "projective" or "raymarch" (see
+    pipeline/fusion_backend.py).
     ``sync_shift=True`` shifts the window at the triggering scan instead
     of on a worker thread (bitwise-reproducible runs; parity mode always
     shifts synchronously).  ``resume=True`` reopens the map file and

@@ -89,9 +89,14 @@ class ScanQueue:
     def __init__(self, capacity: int, backend: str = "native"):
         if backend not in ("native", "python"):
             raise ValueError(f"unknown ScanQueue backend {backend!r}")
-        self.backend = backend
+        self._backend = backend
         self._q = (NativeByteQueue(capacity) if backend == "native"
                    else ConcurrentRingBuffer(capacity))
+
+    @property
+    def backend(self) -> str:
+        """"native" or "python": the queue this one runs on."""
+        return self._backend
 
     def push(self, stamp: float, cloud: np.ndarray, *, force: bool = False,
              timeout: float = -1.0) -> bool:
