@@ -187,6 +187,7 @@ def test_warpsense_app_publishes_live():
     assert shifts and np.array_equal(shifts[-1], app.state.pos.numpy())
     st = json.loads(mon.status_json())
     assert st["scans"] == 4 and st["map_epoch"] == 4
+    assert st["scan_ms"] > 0            # the app passes the scan's host time
     assert st["shifts"] == len(shifts)
     assert mon.map_ply_bytes().startswith(b"ply")
     app.terminate()

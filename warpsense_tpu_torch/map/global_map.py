@@ -18,6 +18,9 @@ Improvements over the reference (documented capability deltas):
 
 ``path=None`` keeps the same groups, datasets and attributes in memory
 (``_MemoryFile``) for machines without h5py; nothing is persisted then.
+``evaluator``: an ``obs.profiler.RuntimeEvaluator`` that counts the chunks
+the LRU did not hold (``chunk_miss``; once it is full each also evicts
+one); None counts nothing.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ class _MemoryFile(_MemoryGroup):
 class GlobalMap:
     def __init__(self, path: str | Path | None, default_value: int,
                  default_weight: int = 0, truncate: bool = True,
-                 meta: dict | None = None):
+                 meta: dict | None = None, evaluator=None):
         if path is None:
             self.path = None
             self._f = _MemoryFile()
@@ -91,6 +94,7 @@ class GlobalMap:
         # fusion queue starved the map, and the pose flew off unmapped
         # terrain).  Coarse by design: uncontended in the common path.
         self._lock = threading.RLock()
+        self.eval = evaluator
         self.default_value = int(default_value)
         self.default_weight = int(default_weight)
         self._map = self._f.require_group(MAP_GROUP[1:])
@@ -116,6 +120,8 @@ class GlobalMap:
                 chunk = self._active.pop(key)
                 self._active[key] = chunk  # refresh recency
                 return chunk
+            if self.eval:
+                self.eval.count("chunk_miss")
             tag = tag_from_chunk_pos(key)
             if tag in self._map:
                 chunk = np.asarray(self._map[tag][...],

@@ -98,16 +98,27 @@ class LocalMap:
     ``"native"`` (the default; ``ws_ring_gather`` / ``ws_ring_scatter`` of
     native/native.cpp, built at first use, raises when it cannot be) or
     ``"numpy"`` (the numpy twin).  Both give the same bytes.
+
+    ``evaluator``: an ``obs.profiler.RuntimeEvaluator`` that times the
+    device-backed shift's phases (spans ``shift.gather``: the slab's
+    index selects and copy to the host; ``shift.store``: ``pack`` and the
+    global map's chunk writes; ``shift.load``: its chunk reads and
+    ``unpack``; ``shift.scatter``: the copy to the device and the indexed
+    write) and counts the bytes each way (``shift_bytes_d2h``,
+    ``shift_bytes_h2d``), on whatever thread runs them; None records
+    nothing.
     """
 
     def __init__(self, size: tuple[int, int, int], global_map: GlobalMap,
-                 force_odd: bool = True, slab_copies: str = "native"):
+                 force_odd: bool = True, slab_copies: str = "native",
+                 evaluator=None):
         if slab_copies not in ("native", "numpy"):
             raise ValueError(f"unknown slab_copies {slab_copies!r}")
         self.size = tuple((make_odd(int(s)) if force_odd else int(s))
                           for s in size)
         self.global_map = global_map
         self.slab_copies = slab_copies
+        self.eval = evaluator
         s = self.size
         self.state = LocalMapState(
             value=np.full(s, global_map.default_value, np.int16),
@@ -183,22 +194,54 @@ class LocalMap:
         return axes
 
     def _dev_gather(self, start, end):
+        prof = self.eval
+        if prof:
+            prof.start("shift.gather")
         ax, ay, az = self._dev_slab_index(start, end)
 
         def take(t):
             return t.index_select(0, ax).index_select(1, ay).index_select(
                 2, az).cpu().numpy()
-        return take(self._dev.value), take(self._dev.weight)
+        v, w = take(self._dev.value), take(self._dev.weight)
+        if prof:
+            prof.stop("shift.gather")
+            prof.count("shift_bytes_d2h", v.nbytes + w.nbytes)
+        return v, w
 
     def _dev_scatter(self, start, end, v, w) -> None:
         """In-place write of a host slab into the attached tensors."""
+        prof = self.eval
+        if prof:
+            prof.start("shift.scatter")
         ax, ay, az = self._dev_slab_index(start, end)
         ix = (ax[:, None, None], ay[None, :, None], az[None, None, :])
         device = self._dev.value.device
-        self._dev.value[ix] = torch.as_tensor(np.asarray(v, np.int16),
-                                              device=device)
-        self._dev.weight[ix] = torch.as_tensor(np.asarray(w, np.int16),
-                                               device=device)
+        v, w = np.asarray(v, np.int16), np.asarray(w, np.int16)
+        # one slab on the device at a time: the peak stays one slab
+        self._dev.value[ix] = torch.as_tensor(v, device=device)
+        self._dev.weight[ix] = torch.as_tensor(w, device=device)
+        if prof:
+            prof.stop("shift.scatter")
+            prof.count("shift_bytes_h2d", v.nbytes + w.nbytes)
+
+    def _store_slab(self, start, v, w) -> None:
+        """Pack a gathered slab and write it into the global map."""
+        prof = self.eval
+        if prof:
+            prof.start("shift.store")
+        self.global_map.write_area(np.asarray(start), pack(v, w))
+        if prof:
+            prof.stop("shift.store")
+
+    def _load_slab(self, start, end):
+        """Read a box of the global map and unpack it: (value, weight)."""
+        prof = self.eval
+        if prof:
+            prof.start("shift.load")
+        vw = unpack(self.global_map.read_area(start, end))
+        if prof:
+            prof.stop("shift.load")
+        return vw
 
     # ------------------------------------------- host cell access (twins)
     def _coords(self, p: np.ndarray) -> np.ndarray:
@@ -301,8 +344,7 @@ class LocalMap:
 
     def _save_area_run(self, start, end) -> None:
         if self._dev is not None:
-            v, w = self._dev_gather(start, end)
-            self.global_map.write_area(start, pack(v, w))
+            self._store_slab(start, *self._dev_gather(start, end))
             return
         if self.slab_copies == "native":
             raw = np.empty(tuple((end - start + 1).tolist()), np.uint32)
@@ -323,10 +365,10 @@ class LocalMap:
             self._load_area_run(s, e)
 
     def _load_area_run(self, start, end) -> None:
-        raw = self.global_map.read_area(start, end)
         if self._dev is not None:
-            self._dev_scatter(start, end, *unpack(raw))
+            self._dev_scatter(start, end, *self._load_slab(start, end))
             return
+        raw = self.global_map.read_area(start, end)
         if self.slab_copies == "native":
             raw = np.ascontiguousarray(raw, np.uint32)
             lib, args, _keep = self._native_args(start, end, raw)
@@ -430,10 +472,9 @@ class LocalMap:
     def shift_io(self, plan: dict) -> None:
         """Phase 2/3 (safe on a worker thread): global-map IO only."""
         for s, e, v, w in plan["evict"]:
-            self.global_map.write_area(np.asarray(s), pack(v, w))
-        plan["loaded"] = [
-            (s, e) + unpack(self.global_map.read_area(s, e))
-            for s, e in plan["load_boxes"]]
+            self._store_slab(s, v, w)
+        plan["loaded"] = [(s, e) + self._load_slab(s, e)
+                          for s, e in plan["load_boxes"]]
 
     def finish_shift(self, plan: dict) -> LocalMapState:
         """Phase 3/3 (the caller's thread): advance pos/offset, scatter the

@@ -133,6 +133,8 @@ class FastsenseApp:
         self._worker_running = True
         self._worker.start()
         self.eval = RuntimeEvaluator.get_instance()
+        if self.profile:
+            self.eval.use_device(self.device)
 
     # ------------------------------------------------------------- callbacks
     def imu_callback(self, sample: ImuSample,

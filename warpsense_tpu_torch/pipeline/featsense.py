@@ -42,11 +42,6 @@ from ..utils.ring_buffer import ConcurrentRingBuffer
 from .fusion_backend import fuse_cloud
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class FeatsenseMapping:
     """TSDF back end with VGICP refinement (Mapping stage,
     mapping.cpp:39-152): consumes sensor-frame clouds (meters) and F-LOAM
@@ -309,6 +304,8 @@ class FeatsenseApp:
         self.surf_capacity = surf_capacity
         self.profile = profile
         self.eval = RuntimeEvaluator.get_instance()
+        if profile:
+            self.eval.use_device(self.device)
         kwargs = dict(edge_leaf=fl.edge_resolution,
                       optimization_steps=fl.optimization_steps)
         kwargs.update(odom_kwargs or {})
@@ -336,7 +333,6 @@ class FeatsenseApp:
             prof.start("features")
         (e_pts, e_mask, _), (s_pts, s_mask, _) = self.features(cloud_m)
         if prof:
-            _sync(self.device)
             prof.stop("features")
             prof.start("odometry")
         floam_pose = self.odom.update(e_pts, e_mask, s_pts, s_mask)
@@ -346,7 +342,6 @@ class FeatsenseApp:
         flat = np.ascontiguousarray(cloud_m.reshape(-1, 3), dtype=np.float32)
         self.mapping.process(flat, np.any(flat != 0.0, axis=1), floam_pose)
         if prof:
-            _sync(self.device)
             prof.stop("mapping")
             prof.stop("total")
         self.floam_path.append(floam_pose.copy())

@@ -22,6 +22,7 @@ mode, the fields kernel K2; on the CPU their plain versions run.
 from __future__ import annotations
 
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,8 +61,15 @@ class WarpsenseApp:
     of on a worker thread (bitwise-reproducible runs; parity mode always
     shifts synchronously).  ``resume=True`` reopens the map file and
     continues from its last pose.  ``monitor``: an optional
-    ``obs.live.LiveMonitor`` that receives the pose and a copy of the map
-    after each scan, and each window shift before it happens.
+    ``obs.live.LiveMonitor`` that receives the pose (with the scan's host
+    time) and a copy of the map after each scan, and each window shift
+    before it happens.  ``profile=True`` times the scan's layers as spans
+    of ``self.eval`` (``obs.profiler.RuntimeEvaluator``): "total", "glue"
+    (subsample, pad, the copies to the device), "preprocessing", "tsdf",
+    "registration" and its "fields", "shift" and its phases (see
+    ``map.local_map.LocalMap``), each until the work it launched is done,
+    with no synchronisation of its own.  The fields-cache counters
+    (``fields_cache_hit``, ``fields_cache_miss``) always count.
     """
 
     def __init__(self, params: Params, map_path: str | Path | None = None,
@@ -76,6 +84,11 @@ class WarpsenseApp:
             raise ValueError(
                 f"unknown registration.mode {params.registration.mode!r}")
         self.device = resolve_device(device)
+        self.eval = RuntimeEvaluator.get_instance()
+        if profile:
+            self.eval.use_device(self.device)
+        prof = self.eval if profile else None
+        self._scans = 0            # cloud_callback calls: the scan ids
         self.params = params
         self._sync_shift = bool(sync_shift)
         self.capacity = int(capacity)
@@ -98,9 +111,10 @@ class WarpsenseApp:
             "max_distance": m.max_distance,
             "map_size_x": m.size_voxels[0], "map_size_y": m.size_voxels[1],
             "map_size_z": m.size_voxels[2],
-        })
+        }, evaluator=prof)
         self.local_map = LocalMap(window_size or m.size_voxels,
-                                  self.global_map, force_odd=force_odd)
+                                  self.global_map, force_odd=force_odd,
+                                  evaluator=prof)
 
         self.pose = np.eye(4, dtype=np.float32)  # mm translation
         self._prev_pose = None     # previous scan's pose (velocity prior)
@@ -132,16 +146,11 @@ class WarpsenseApp:
         self.max_steps, self.max_isteps = plan_raymarch(
             m.tau, m.resolution, max_range_mm, params.lidar.channels,
             params.lidar.vfov)
-        self.eval = RuntimeEvaluator.get_instance()
 
     def _device_state(self):
         """The window on the device (a seam: the sharded app places its
         slab)."""
         return self.local_map.device_state(self.device)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------- callbacks
     def imu_callback(self, sample: ImuSample) -> None:
@@ -156,12 +165,17 @@ class WarpsenseApp:
         ``cloud_m``: (..., 3) float32 meters in the SENSOR frame (organized
         scans are flattened); zero rows are invalid.  Returns the updated
         4x4 pose (mm)."""
+        t0 = time.perf_counter()
         prof = self.eval if self.profile else None
+        self._scans += 1
         if prof:
+            prof.set_scan(self._scans - 1)
             prof.start("total")
         self._collect_shift()
         m = self.params.map
         fast = self.params.registration.mode == "fast"
+        if prof:
+            prof.start("glue")
         flat = np.ascontiguousarray(cloud_m.reshape(-1, 3), np.float32)
         if len(flat) > self.capacity:
             # static-shape budget: uniform random subsample (a stride on an
@@ -174,8 +188,8 @@ class WarpsenseApp:
         valid = torch.as_tensor(
             np.concatenate([np.any(flat != 0.0, axis=1),
                             np.zeros(len(pad), bool)]), device=self.device)
-
         if prof:
+            prof.stop("glue")
             prof.start("preprocessing")
         # fast mode keeps TRUE point coordinates through dedup; parity
         # mode snaps them to voxel centers like the reference
@@ -184,7 +198,6 @@ class WarpsenseApp:
                                resolution=m.resolution,
                                capacity=self.capacity, snap=not fast)
         if prof:
-            self._sync()
             prof.stop("preprocessing")
 
         # parity mode fuses BEFORE registering, at the stale pose, like the
@@ -256,17 +269,18 @@ class WarpsenseApp:
         self._maybe_shift(prof)
         if prof:
             prof.stop("total")
-        self._publish(stamp)
+        self._publish(stamp, (time.perf_counter() - t0) * 1e3)
         return self.pose.copy()
 
-    def _publish(self, stamp: float) -> None:
+    def _publish(self, stamp: float, scan_ms: float) -> None:
         """The reference's per-scan TF/path publish and marker cloud
         (app.cpp:150-170, publish.h:11-93), to the monitor if any (a seam:
-        the sharded app gathers the window from its ranks)."""
+        the sharded app gathers the window from its ranks); ``scan_ms``:
+        the scan's host time so far."""
         if self.monitor is None:
             return
         m = self.params.map
-        self.monitor.publish_pose(stamp, self.pose)
+        self.monitor.publish_pose(stamp, self.pose, timing_ms=scan_ms)
         self.monitor.publish_map(self.state, resolution=m.resolution,
                                  tau=m.tau)
 
@@ -276,7 +290,6 @@ class WarpsenseApp:
             prof.start("tsdf")
         self._update_tsdf(pts, mask)
         if prof:
-            self._sync()
             prof.stop("tsdf")
 
     def _register(self, pts, mask, pretransform, prof=None) -> np.ndarray:
@@ -287,14 +300,16 @@ class WarpsenseApp:
         reg = self.params.registration
         fast = reg.mode == "fast"
         if self._fields is None:
+            self.eval.count("fields_cache_miss")
             if prof:
                 prof.start("fields")
             self._fields = (precompute_fields_packed_auto(
                 self.state, tau=m.tau, exact=self.exact_fields) if fast
                 else precompute_fields(self.state))
             if prof:
-                self._sync()
                 prof.stop("fields")
+        else:
+            self.eval.count("fields_cache_hit")
         if not fast:
             transform = register_cloud_fields(
                 self._fields, self.state.pos, self.state.offset, pts, mask,
@@ -383,12 +398,14 @@ class WarpsenseApp:
             self.shifted = True
             self._fields = None
             if prof:
-                self._sync()
                 prof.stop("shift")
             return
         self.local_map.attach_device(clone_state(self.state))
+        scan = self._scans - 1
 
         def work():
+            if prof:      # the worker's spans belong to the scan that began it
+                prof.set_scan(scan)
             try:
                 self.local_map.shift(new_pos)
             except BaseException as e:      # surfaced in _collect_shift

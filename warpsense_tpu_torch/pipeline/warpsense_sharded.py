@@ -106,7 +106,7 @@ class ShardedWarpsenseApp(WarpsenseApp):
         """This rank's slab of the host window on its device."""
         return shard_state(self.local_map.state, self.mesh)
 
-    def _publish(self, stamp: float) -> None:
+    def _publish(self, stamp: float, scan_ms: float) -> None:
         """Pose to this rank's monitor; the whole window to every rank's
         monitor when any rank's rate limit says a snapshot is due.  Every
         rank enters the same collectives at the same scans: the decision is
@@ -115,7 +115,7 @@ class ShardedWarpsenseApp(WarpsenseApp):
             return
         mon = self.monitor
         if mon is not None:
-            mon.publish_pose(stamp, self.pose)
+            mon.publish_pose(stamp, self.pose, timing_ms=scan_ms)
         if not any_rank(self.mesh, mon is not None and mon.map_due()):
             return
         window = gather_state(self.state, self.mesh)
@@ -128,14 +128,16 @@ class ShardedWarpsenseApp(WarpsenseApp):
         m = self.params.map
         reg = self.params.registration
         if self._fields is None:
+            self.eval.count("fields_cache_miss")
             if prof:
                 prof.start("fields")
             self._fields = precompute_fields_packed_sharded(
                 self.state, mesh=self.mesh, tau=m.tau,
                 exact=self.exact_fields)
             if prof:
-                self._sync()
                 prof.stop("fields")
+        else:
+            self.eval.count("fields_cache_hit")
         transform, iters, err = register_cloud_packed_sharded(
             self._fields, self.state.pos, self.state.offset, pts, mask,
             torch.as_tensor(pretransform, device=self.device),
@@ -187,8 +189,11 @@ class ShardedWarpsenseApp(WarpsenseApp):
         if self.mesh.world == 1 and not self._sync_shift:
             self.local_map.attach_device(self.state)
             self._shift_plan = self.local_map.begin_shift(new_pos)
+            scan = self._scans - 1
 
             def work():
+                if prof:  # the worker's spans belong to the scan that began it
+                    prof.set_scan(scan)
                 try:
                     self.local_map.shift_io(self._shift_plan)
                 except BaseException as e:   # surfaced in _collect_shift
@@ -204,7 +209,6 @@ class ShardedWarpsenseApp(WarpsenseApp):
         self.shifted = True
         self._fields = None      # window moved: registration fields stale
         if prof:
-            self._sync()
             prof.stop("shift")
 
     def _finish_async_shift(self):
