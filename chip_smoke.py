@@ -16,12 +16,13 @@ Phases (each raises on failure; nothing falls back to the CPU):
    required; then the same cases at configs/default.yaml's shapes
    (625 x 625 x 391, tau 1000 mm, its max_weight), which the parity and
    featsense apps run;
-4. fields kernel K2 (packed and exact) against its plain version on the
-   fused map (also with its weight plane at another offset from a 16-byte
-   boundary than its value plane: the wrapper stages an aligned copy) and
-   on seeded windows of full-range values with weight on every face (so
-   every wrap path runs) at 625 x 625 x 235 and at the default 625 x 625
-   x 391, each at tau 600 and 1000; 0 mismatches required;
+4. fields kernel K2 (packed, exact and parity) against its plain versions
+   on the fused map (also with its weight plane at another offset from a
+   16-byte boundary than its value plane: the wrapper stages an aligned
+   copy) and on seeded windows of full-range values with weight on every
+   face (so every wrap path runs) at 625 x 625 x 235 and at the default
+   625 x 625 x 391, packed and exact each at tau 600 and 1000; 0
+   mismatches required;
 5. kernel and plain times (CUDA events around one call, median of 7; K2
    also per launch in runs of K2_LAUNCHES back-to-back launches), K1
    level and tilt (the general sweep) and K2 at 625 x 625 x 235, K1 level
@@ -31,7 +32,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
    longer; K1's bytes and operations counted from this run's inputs, the
    tilt's also under the count without its early-outs; K1 also beside the
    floor of its design's own traffic, sweep_floor_ms; K2 also beside a
-   device-to-device copy of as many bytes, copy_ms);
+   device-to-device copy of as many bytes, copy_ms); then K2's parity mode
+   on the seeded window at the default 625 x 625 x 391;
 5b. REGLOOP, the registration loop kernel (one launch a registration:
    K3, the statistics, and K4, the step, of every iteration) on FULL's
    fused map (packed and exact fields, the fast LM with a coarse phase and
@@ -80,7 +82,9 @@ Phases (each raises on failure; nothing falls back to the CPU):
    (625 x 625 x 391): the same 10 scans, update_distance 0, a shift check
    every scan; each scan's position within PARITY_POSE_BOUND_MM of the
    JAX app's on the CPU and its window where JAX's was (the window moves
-   six times), ATE below PARITY_ATE_BOUND_M, K1 launched;
+   six times), ATE below PARITY_ATE_BOUND_M, K1 launched, K2's parity
+   mode launched once for each computation of the fields (the app's
+   fields_cache_miss count);
 9. ray-march fusion: one fuse_cloud(fusion="raymarch") on CUDA and on CPU
    tensors at a 161 x 161 x 61 window (0 value/weight mismatches), then
    its time at the default window;
@@ -100,7 +104,8 @@ Phases (each raises on failure; nothing falls back to the CPU):
    12 scans with an orientation IMU sample before each, first replayed
    with sync() after each scan (ATE at most twice the JAX app's, every
    fusion one launch of K1's general sweep, a (state, fields) snapshot
-   taken before the first worker update bit-unchanged after the last),
+   taken before the first worker update bit-unchanged after the last,
+   K2's parity mode launched once per published update),
    then the same scans without sync() (every job published by
    terminate(), finite poses); both profiled: scans/s, the registration
    span, each scan's GN iterations, each update's shift or clone, fusion
@@ -601,6 +606,29 @@ def check_fields(torch, state, tau, name):
     return report
 
 
+def check_fields_parity(torch, state, name):
+    """K2's parity mode against ``precompute_fields`` on ``state``: 0
+    mismatching int32 words required in each of the three planes."""
+    from warpsense_tpu_torch.kernels.fields import fields_parity
+    from warpsense_tpu_torch.ops.registration import precompute_fields
+    k, p = fields_parity(state), precompute_fields(state)
+    report = dict(name=name, size=list(state.value.shape),
+                  parity_mismatch=[int((a != b).sum()) for a, b in zip(k, p)],
+                  max_abs_err=max(int((a.long() - b.long()).abs().max())
+                                  for a, b in zip(k, p)),
+                  valid=int((k.vw >> 16).ne(0).sum()),
+                  gradients=[int(g.ne(0).sum()) for g in (
+                      k.gxy & 0xFFFF, k.gxy >> 16, k.gz)])
+    log("[K2 parity]", json.dumps(report))
+    if any(report["parity_mismatch"]):
+        raise AssertionError(f"K2's parity mode disagrees with "
+                             f"precompute_fields: {report}")
+    if report["valid"] == 0 or 0 in report["gradients"]:
+        raise AssertionError(f"K2's parity mode saw no weight or no "
+                             f"gradient: {report}")
+    return report
+
+
 def misaligned_weight(torch, state):
     """``state`` with its weight plane moved to a view that starts 2 bytes
     past the value plane's offset from a 16-byte boundary (a window cut
@@ -620,17 +648,23 @@ def check_fields_all(torch, state, tau, device):
     """K2 on the fused map ``state`` (also with its weight plane misaligned
     against its value plane: the wrapper stages an aligned copy), then on
     seeded full-range windows at FULL and at the default shapes, each at
-    tau 600 and 1000.  The seeded windows carry weight on every face, so
-    every wrap path is exercised."""
-    from warpsense_tpu_torch.kernels.fields import fields_packed
-    report = [check_fields(torch, state, tau, "fused")]
-    copies = fields_packed.staged_copies
-    report.append(check_fields(torch, misaligned_weight(torch, state), tau,
-                               "fused_misaligned_weight"))
-    report[-1]["staged_copies"] = fields_packed.staged_copies - copies
-    if report[-1]["staged_copies"] != 2:
+    tau 600 and 1000; its parity mode on the same windows (tau plays no
+    part there).  The seeded windows carry weight on every face, so every
+    wrap path is exercised."""
+    from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
+    report = [check_fields(torch, state, tau, "fused"),
+              check_fields_parity(torch, state, "fused")]
+    copies = fields_packed.staged_copies, fields_parity.staged_copies
+    skewed = misaligned_weight(torch, state)
+    report.append(check_fields(torch, skewed, tau, "fused_misaligned_weight"))
+    report.append(check_fields_parity(torch, skewed,
+                                      "fused_misaligned_weight"))
+    staged = (fields_packed.staged_copies - copies[0],
+              fields_parity.staged_copies - copies[1])
+    if staged != (2, 1):
         raise AssertionError(f"K2 did not stage the misaligned weight: "
-                             f"{report[-1]}")
+                             f"{staged} copies (packed and exact, parity)")
+    del skewed
     torch.cuda.empty_cache()
     for label, size in (("full", FULL["size"]),
                         ("default", default_fusion_cfg()["size"])):
@@ -640,6 +674,7 @@ def check_fields_all(torch, state, tau, device):
         for t in FIELDS_TAUS:
             report.append(check_fields(torch, seeded, t,
                                        f"seeded_{label}_tau{t}"))
+        report.append(check_fields_parity(torch, seeded, f"seeded_{label}"))
         del seeded
         torch.cuda.empty_cache()
     return report
@@ -781,32 +816,40 @@ def time_per_launch(torch, fn, launches=K2_LAUNCHES) -> float:
     return time_ms(torch, run) / launches
 
 
-def time_fields(torch, cfg, state):
-    """K2 times on ``state``, each beside its bound: the int16 value and
-    weight planes read once and one int32 plane written (two in exact
-    mode).  Its work is integer work, far below the float32 rate, so bytes
-    bound it.  ``ms`` is one wrapper call between two events, as K1's, so
-    it holds the host's work before the launch; ``per_launch_ms`` is the
-    same call in runs of back-to-back calls (``time_per_launch``), without
-    that gap.  Beside them ``copy_ms``: a device-to-device ``copy_`` that
+# int32 planes K2 writes in each mode (``time_fields``'s ``modes``)
+FIELDS_PLANES = {"packed": 1, "exact": 2, "parity": 3}
+
+
+def time_fields(torch, cfg, state, modes=("packed", "exact")):
+    """K2 times on ``state`` in each of ``modes``, each beside its bound:
+    the int16 value and weight planes read once and the mode's int32
+    planes written (``FIELDS_PLANES``).  Its work is integer work, far
+    below the float32 rate, so bytes bound it.  ``ms`` is one wrapper call
+    between two events, as K1's, so it holds the host's work before the
+    launch; ``per_launch_ms`` is the same call in runs of back-to-back
+    calls (``time_per_launch``), without that gap.  Beside them ``copy_ms``: a device-to-device ``copy_`` that
     moves as many bytes (half of them read, half written), timed per
     launch, the rate the card reaches in practice, and ``share_of_copy`` =
     copy_ms / per_launch_ms."""
-    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels import fields as kf
     nvox = state.value.numel()
     out = {}
-    for exact in (False, True):
+    for mode in modes:
         def call():
-            fields_packed(state, tau=cfg["tau"], exact=exact)
+            if mode == "parity":
+                kf.fields_parity(state)
+            else:
+                kf.fields_packed(state, tau=cfg["tau"],
+                                 exact=mode == "exact")
         k_ms = time_ms(torch, call)
         pl_ms = time_per_launch(torch, call)
-        moved = (12 if exact else 8) * nvox
+        moved = (4 + 4 * FIELDS_PLANES[mode]) * nvox
         src = torch.empty(moved // 2, dtype=torch.uint8,
                           device=state.value.device)
         dst = torch.empty_like(src)
         c_ms = time_per_launch(torch, lambda: dst.copy_(src))
         del src, dst
-        out["exact" if exact else "packed"] = dict(
+        out[mode] = dict(
             size=list(state.value.shape), ms=k_ms, library_ms=None,
             **bound(moved, 0, k_ms), per_launch_ms=pl_ms, copy_ms=c_ms,
             share_of_copy=c_ms / pl_ms)
@@ -814,19 +857,31 @@ def time_fields(torch, cfg, state):
 
 
 def time_fields_plain(torch, cfg, state, times):
-    """The plain versions' times into ``times`` (``time_fields``'s), taken
-    after all the kernel times: the plain versions' heavy traffic slows a
-    kernel timed right after them."""
+    """The plain versions' times into ``times`` (``time_fields``'s, each
+    mode it timed), taken after all the kernel times: the plain versions'
+    heavy traffic slows a kernel timed right after them."""
     from warpsense_tpu_torch.ops.registration import (
-        precompute_fields_packed, precompute_fields_packed2)
-    times["packed"]["plain_ms"] = time_ms(
-        torch, lambda: precompute_fields_packed(state, tau=cfg["tau"]),
-        reps=5)
-    times["exact"]["plain_ms"] = time_ms(
-        torch, lambda: precompute_fields_packed2(state), reps=5)
+        precompute_fields, precompute_fields_packed, precompute_fields_packed2)
+    plain = {"packed": lambda: precompute_fields_packed(state, tau=cfg["tau"]),
+             "exact": lambda: precompute_fields_packed2(state),
+             "parity": lambda: precompute_fields(state)}
     for name, t in times.items():
+        t["plain_ms"] = time_ms(torch, plain[name], reps=5)
         log(f"[time K2 {name}]", json.dumps(t))
     return times
+
+
+def time_fields_parity(torch, device):
+    """K2's parity mode timed (``time_fields``, then its plain version) on
+    the seeded full-range window at the default 625 x 625 x 391, the
+    window the shipped parity configuration computes its fields on."""
+    cfg = default_fusion_cfg()
+    state = seeded_fields_state(torch, cfg["size"], device)
+    times = time_fields_plain(torch, cfg, state,
+                              time_fields(torch, cfg, state, ("parity",)))
+    del state
+    torch.cuda.empty_cache()
+    return times["parity"]
 
 
 # ------------------------------------------------------------- phase 5b
@@ -1767,7 +1822,7 @@ def default_params(**map_overrides):
 
 
 def reset_launches() -> None:
-    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
@@ -1777,6 +1832,8 @@ def reset_launches() -> None:
     fusion_sweep_merge.general_launches = 0
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
+    fields_parity.launches = 0
+    fields_parity.staged_copies = 0
     reg_loop.launches = 0
     shard_iter.launches = 0
     shard_iter.replays = 0
@@ -1786,14 +1843,15 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
-    sweep), K2's ("fields", and its aligned copies "fields_staged"), the
-    loop kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
+    sweep), K2's ("fields", and its aligned copies "fields_staged"; its
+    parity mode's "fields_parity" and "fields_parity_staged"), the loop
+    kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
     ("shard_iter": its fused K4 + K3 iteration, launched from the host or
     replayed in a captured chunk; "shard_replays" and "shard_captures"
     count the chunk's graphs), and the registrations' counts:
     registrations, their iterations, header reads (host syncs) and host
     seconds."""
-    from warpsense_tpu_torch.kernels.fields import fields_packed
+    from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
@@ -1802,6 +1860,8 @@ def read_launches() -> dict:
             "fusion_general": fusion_sweep_merge.general_launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
+            "fields_parity": fields_parity.launches,
+            "fields_parity_staged": fields_parity.staged_copies,
             "reg_loop": reg_loop.launches,
             "shard_iter": shard_iter.launches,
             "shard_replays": shard_iter.replays,
@@ -1838,6 +1898,7 @@ def run_parity_app(torch, cfg, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = read_launches()
+    misses = app.eval.counters()["fields_cache_miss"]
     pose_err = [float(np.abs(p[:3, 3] - np.asarray(j)).max())
                 for p, j in zip(poses, PARITY_JAX_MM)]
     rep = dict(window=list(app.local_map.size), scans=len(scans),
@@ -1847,6 +1908,7 @@ def run_parity_app(torch, cfg, device):
                stage_count={r["task"]: r["count"] for r in ev.to_rows()},
                window_pos=windows, pose_err_vs_jax_mm=pose_err,
                ate_m=ate_m(poses, gt), launches=launches,
+               fields_cache_miss=misses,
                finite=bool(np.all(np.isfinite(np.stack(poses)))))
     app.terminate()
     rep["registration"] = registration_report(launches, "parity_app")
@@ -1864,6 +1926,9 @@ def run_parity_app(torch, cfg, device):
                              f"{PARITY_ATE_BOUND_M} m")
     if launches["fusion"] == 0:
         raise AssertionError(f"K1 was not launched: {launches}")
+    if not launches["fields_parity"] == misses > 0:
+        raise AssertionError(f"K2's parity mode not launched once a fields "
+                             f"computation ({misses}): {launches}")
     return rep
 
 
@@ -2299,8 +2364,13 @@ def run_fastsense(torch, cfg, device):
     if async_rep["published"] != async_rep["jobs"] + 1:
         raise AssertionError(f"async fastsense left jobs unpublished: "
                              f"{async_rep}")
-    if async_rep["launches"]["fusion_general"] != async_rep["published"]:
+    if not (async_rep["launches"]["fusion_general"]
+            == async_rep["launches"]["fields_parity"]
+            == async_rep["published"]):
         raise AssertionError(f"async fastsense launches: {async_rep}")
+    if launches["fields_parity"] != rep["published"]:
+        raise AssertionError(f"fastsense fields are not one launch of K2's "
+                             f"parity mode per published update: {rep}")
     if not (held["published"] == held["jobs"] + 1
             == held["clones"] + 1 == cfg["held_scans"] // 2 + 1):
         raise AssertionError(f"held fastsense updates were not each one "
@@ -3002,6 +3072,8 @@ def main() -> int:
     phase("fields_plain_times", time_fields_plain, torch, FULL, state,
           k2_times)
     torch.cuda.empty_cache()
+    k2_parity = phase("fields_parity_times", time_fields_parity, torch,
+                      device)
     default_cfg = default_fusion_cfg()
     state_default, k1_default = phase("fusion_check_default", check_fusion,
                                       torch, default_cfg, device)
@@ -3122,6 +3194,17 @@ def main() -> int:
          "launches_by_path": {k: v["fields"] for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          **k2_cases["packed_full"], "cases": k2_cases},
+        {"name": "fields_K2_parity", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/fields.cu",
+         "launched_as": "fields_kernel<kParity>",
+         "replaces": "warpsense_tpu/ops/registration.py:81 (XLA)",
+         "launches": parity["launches"]["fields_parity"],
+         "launches_by_path": {k: v["fields_parity"]
+                              for k, v in paths.items()},
+         "max_abs_err": max(c["max_abs_err"] for c in k2
+                            if "parity_mismatch" in c),
+         **entry(k2_parity, "per_launch_ms", "copy_ms", "share_of_copy"),
+         "size": k2_parity["size"]},
         dict(reg_entry("reg_stats_K3",
                        "warpsense_tpu/ops/registration.py:454",
                        ["warpsense_tpu/ops/registration.py:106",

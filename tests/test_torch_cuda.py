@@ -16,7 +16,7 @@ import torch
 from warpsense_tpu_torch.core.config import Params
 from warpsense_tpu_torch.io.synthetic import (BoxWorld, box_room_cloud,
                                               render_scan, walk_trajectory)
-from warpsense_tpu_torch.kernels.fields import fields_packed
+from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
 from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
 from warpsense_tpu_torch.map.local_map import clone_state, create_state
 from warpsense_tpu_torch.ops import registration as treg
@@ -26,6 +26,8 @@ from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
 from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
 from warpsense_tpu_torch.pipeline.fusion_backend import fuse_cloud
 from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
+
+from _fields_window import planted_window
 
 TAU, RES = 600, 64
 
@@ -218,20 +220,31 @@ def test_segment_sum_is_deterministic_on_the_card(cuda):
     assert bool(((a.cpu() - want).abs() <= bound).all())
 
 
+def _plain_fields(st, mode):
+    return {"packed": lambda: treg.precompute_fields_packed(st, tau=TAU),
+            "exact": lambda: treg.precompute_fields_packed2(st),
+            "parity": lambda: treg.precompute_fields(st)}[mode]()
+
+
 # degenerate extents (1 and 2, where x-1 == x+1), Y*Z a multiple of 8,
 # Y*Z above one tile with Z at the default extent, odd windows, and planes
 # that start `offset` int16 past a 16-byte boundary (a window cut from a
-# larger one starts so)
+# larger one starts so); values in [-TAU, TAU] packed and exact, and the
+# planted full-range window (zeros beside signed values, the int16
+# extremes) in parity mode
 @pytest.mark.parametrize("size,offset", [
     ((37, 29, 23), 0), ((64, 40, 33), 0), ((1, 5, 7), 0), ((2, 3, 1), 0),
     ((5, 7, 3), 0), ((9, 16, 32), 0), ((3, 40, 391), 0), ((5, 13, 23), 1),
     ((5, 13, 23), 3), ((5, 13, 23), 7)])
-@pytest.mark.parametrize("exact", [False, True])
-def test_fields_kernel_matches_plain(cuda, size, offset, exact):
-    rng = np.random.default_rng(sum(size))
-    v = rng.integers(-TAU, TAU + 1, size).astype(np.int16)
-    w = ((rng.random(size) < 0.7) * rng.integers(1, 64, size)).astype(
-        np.int16)
+@pytest.mark.parametrize("mode", ["packed", "exact", "parity"])
+def test_fields_kernel_matches_plain(cuda, size, offset, mode):
+    if mode == "parity":
+        v, w = planted_window(size, sum(size))
+    else:
+        rng = np.random.default_rng(sum(size))
+        v = rng.integers(-TAU, TAU + 1, size).astype(np.int16)
+        w = ((rng.random(size) < 0.7) * rng.integers(1, 64, size)).astype(
+            np.int16)
     n = v.size
     flat_v = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
     flat_w = torch.zeros(n + 8, dtype=torch.int16, device=cuda)
@@ -241,23 +254,24 @@ def test_fields_kernel_matches_plain(cuda, size, offset, exact):
     st = st._replace(value=flat_v[offset:offset + n].view(size),
                      weight=flat_w[offset:offset + n].view(size))
     assert st.value.data_ptr() % 16 == 2 * offset
-    before = fields_packed.launches
-    got = fields_packed(st, tau=TAU, exact=exact)
-    assert fields_packed.launches == before + 1
-    want = (treg.precompute_fields_packed2(st) if exact
-            else treg.precompute_fields_packed(st, tau=TAU))
-    for g, p in zip(got, want):
+    wrapper = fields_parity if mode == "parity" else fields_packed
+    before = wrapper.launches
+    got = (fields_parity(st) if mode == "parity"
+           else fields_packed(st, tau=TAU, exact=mode == "exact"))
+    assert wrapper.launches == before + 1
+    for g, p in zip(got, _plain_fields(st, mode)):
         assert torch.equal(g, p)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
     st = create_state((8, 8, 8), TAU, 0, device=cuda)
     bad = st._replace(value=st.value.to(torch.int32))
-    with pytest.raises(TypeError):
-        fields_packed(bad, tau=TAU)
-    strided = st._replace(value=st.value.transpose(0, 2))
-    with pytest.raises(ValueError):
-        fields_packed(strided, tau=TAU)
+    for wrapper in (lambda s: fields_packed(s, tau=TAU), fields_parity):
+        with pytest.raises(TypeError):
+            wrapper(bad)
+        strided = st._replace(value=st.value.transpose(0, 2))
+        with pytest.raises(ValueError):
+            wrapper(strided)
     # planes at different offsets from a 16-byte boundary (the kernel
     # stages value and weight by the same 16-byte copies): the wrapper
     # copies the weight to the value's offset, counts the copy, and the
@@ -271,17 +285,23 @@ def test_wrappers_reject_bad_inputs(cuda):
     for ov, ow in ((1, 0), (0, 3), (2, 5)):
         skewed = st._replace(value=flat_v[ov:ov + n].view(st.value.shape),
                              weight=flat_w[ow:ow + n].view(st.value.shape))
-        copies = fields_packed.staged_copies
+        copies = (fields_packed.staged_copies, fields_parity.staged_copies)
         for exact in (False, True):
             got = fields_packed(skewed, tau=TAU, exact=exact)
             want = (treg.precompute_fields_packed2(skewed) if exact
                     else treg.precompute_fields_packed(skewed, tau=TAU))
             assert all(torch.equal(g, p) for g, p in zip(got, want))
-        assert fields_packed.staged_copies == copies + 2
+        got = fields_parity(skewed)
+        want = treg.precompute_fields(skewed)
+        assert all(torch.equal(g, p) for g, p in zip(got, want))
+        assert (fields_packed.staged_copies, fields_parity.staged_copies) \
+            == (copies[0] + 2, copies[1] + 1)
     tall = create_state((1, 1, 200_000), TAU, 0, device=cuda,
                         force_odd=False)
     with pytest.raises(ValueError, match="z extent"):
         fields_packed(tall, tau=TAU)
+    with pytest.raises(ValueError, match="z extent"):
+        fields_parity(tall)
 
 
 def test_app_on_cuda_launches_kernels_and_tracks(cuda):
@@ -326,9 +346,11 @@ def _walk_scans(n, channels, columns):
 
 
 def test_parity_app_on_cuda_launches_k1_and_tracks_like_cpu(cuda):
-    """Parity mode (fields and GN in plain PyTorch, fusion through K1): the
-    card and the CPU agree on the first scans; later ones drift apart as
-    the GN's float32 sums run in another order (bound 20 mm)."""
+    """Parity mode (fusion through K1, the fields through K2's parity mode,
+    once a computation: as many launches as the app's fields cache
+    misses): the card and the CPU agree on the first scans; later ones
+    drift apart as the GN's float32 sums run in another order (bound 20
+    mm)."""
     params = Params.from_dict({
         "map": {"max_distance": 0.6, "resolution": 64, "max_weight": 10,
                 "size": {"x": 20, "y": 16, "z": 7}, "shift": 0.18,
@@ -341,12 +363,17 @@ def test_parity_app_on_cuda_launches_k1_and_tracks_like_cpu(cuda):
     for dev in ("cpu", "cuda"):
         app = WarpsenseApp(params, in_memory_map=True, capacity=4096,
                            device=dev)
-        f0 = fusion_sweep_merge.launches
+        f0, k0 = fusion_sweep_merge.launches, fields_parity.launches
+        m0 = app.eval.counters().get("fields_cache_miss", 0)
         poses[dev] = np.stack([app.cloud_callback(s, 0.1 * i)
                                for i, s in enumerate(scans)])
         launched = fusion_sweep_merge.launches - f0
+        misses = app.eval.counters()["fields_cache_miss"] - m0
         app.terminate()
         assert (launched > 0) == (dev == "cuda")
+        assert misses > 0
+        assert fields_parity.launches - k0 == (misses if dev == "cuda"
+                                               else 0)
     assert np.all(np.isfinite(poses["cuda"]))
     diff = np.abs(poses["cpu"][:, :3, 3] - poses["cuda"][:, :3, 3])
     assert diff[:2].max() < 0.5 and diff.max() < 20.0, diff
@@ -590,6 +617,52 @@ def test_k2_on_padded_slabs_matches_whole_window(cuda, exact):
         got = fields_packed(padded, tau=1000, exact=exact)
         for a, b in zip(got, want):
             assert torch.equal(a[1:-1], b[lo:hi])
+
+
+def test_k2_parity_on_padded_slabs_and_the_sharded_caller(cuda):
+    """K2's parity mode as ``register_cloud_sharded`` runs it: on each slab
+    padded with its ring neighbours' edge planes, outer planes dropped, it
+    gives the whole window's planes (and the plain version's) bit for bit
+    on the planted full-range window; at a world of one the sharded caller
+    launches it once and its pose is the single-window registration's."""
+    from warpsense_tpu_torch.map.local_map import LocalMapState
+    from warpsense_tpu_torch.parallel.sharded import (make_mesh,
+                                                      register_cloud_sharded)
+    size, world = (64, 45, 37), 4
+    v, w = planted_window(size, 7)
+    value, weight = torch.from_numpy(v), torch.from_numpy(w)
+    pos = torch.zeros(3, dtype=torch.int32)
+    off = torch.tensor([s // 2 for s in size], dtype=torch.int32)
+    whole = LocalMapState(value.to(cuda), weight.to(cuda), pos.to(cuda),
+                          off.to(cuda))
+    want = fields_parity(whole)
+    plain = treg.precompute_fields(LocalMapState(value, weight, pos, off))
+    for a, b in zip(want, plain):
+        assert torch.equal(a.cpu(), b)
+    xs = size[0] // world
+    for r in range(world):
+        lo, hi = r * xs, (r + 1) * xs
+        rows = [(lo - 1) % size[0], *range(lo, hi), hi % size[0]]
+        padded = LocalMapState(value[rows].to(cuda), weight[rows].to(cuda),
+                               whole.pos, whole.offset)
+        got = fields_parity(padded)
+        for a, b in zip(got, want):
+            assert torch.equal(a[1:-1], b[lo:hi])
+    g = torch.Generator().manual_seed(3)
+    half = torch.tensor([(s // 2 - 2) * RES for s in size])
+    pts = ((torch.rand((4000, 3), generator=g) * 2 - 1) * half).to(
+        torch.int32).to(cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    pose = _reg_pose(1.0, (60.0, -40.0, 20.0)).to(cuda)
+    kw = dict(size=size, resolution=RES, max_iterations=8,
+              it_weight_gradient=0.1, epsilon=0.03)
+    launches = fields_parity.launches
+    got = register_cloud_sharded(whole, pts, mask, pose,
+                                 mesh=make_mesh(cuda), **kw)
+    assert fields_parity.launches == launches + 1
+    one = treg.register_cloud_fields(want, whole.pos, whole.offset, pts,
+                                     mask, pose, **kw)
+    assert torch.equal(got, one)
 
 
 # ------------------------------------ registration: the loop kernel (K3, K4)

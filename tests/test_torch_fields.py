@@ -1,7 +1,8 @@
 """Port vs JAX: packed registration fields (the plain version of kernel
 K2), bit-exact in both modes against the XLA roll formulation and the
 Pallas ``_rolling_kernel`` in interpret mode, on the random (37, 29, 23)
-state of tests/test_registration_pallas.py."""
+state of tests/test_registration_pallas.py; K2's wrappers on CPU tensors,
+the parity one too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +13,10 @@ from warpsense_tpu.kernels.fields_pallas import (
 from warpsense_tpu.map.local_map import LocalMapState as JState
 from warpsense_tpu.ops import registration as jreg
 from warpsense_tpu_torch.interop import state_from_numpy
-from warpsense_tpu_torch.kernels.fields import fields_packed
+from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
 from warpsense_tpu_torch.ops import registration as treg
+
+from _fields_window import planted_window
 
 TAU = 600
 
@@ -70,14 +73,29 @@ def test_decode_roundtrip_matches_jax():
         np.asarray(jreg._unpack_hi(jnp.asarray(x.numpy()))))
 
 
-@pytest.mark.parametrize("exact", [False, True])
-def test_cpu_wrapper_runs_plain_version(exact):
-    """On CPU tensors the K2 wrapper runs the plain version (no launch)."""
-    _, t = _states(6)
-    before = fields_packed.launches
-    got = fields_packed(t, tau=TAU, exact=exact)
-    assert fields_packed.launches == before
-    want = (treg.precompute_fields_packed2(t) if exact
-            else treg.precompute_fields_packed(t, tau=TAU))
+@pytest.mark.parametrize("mode", ["packed", "exact", "parity"])
+def test_cpu_wrapper_runs_plain_version(mode):
+    """On CPU tensors the K2 wrappers run the plain versions (no launch);
+    the parity one on a window with zeros beside signed values and the
+    int16 extremes, where it also gives the JAX package's bits."""
+    if mode == "parity":
+        v, w = planted_window((37, 29, 23), 6)
+        j = JState(value=jnp.asarray(v), weight=jnp.asarray(w),
+                   pos=jnp.zeros(3, jnp.int32),
+                   offset=jnp.zeros(3, jnp.int32))
+        t = state_from_numpy(v, w, [0, 0, 0], [0, 0, 0], device="cpu")
+        before = fields_parity.launches
+        got = fields_parity(t)
+        assert fields_parity.launches == before
+        want = treg.precompute_fields(t)
+        for g, ref in zip(got, jreg.precompute_fields(j)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(ref))
+    else:
+        _, t = _states(6)
+        before = fields_packed.launches
+        got = fields_packed(t, tau=TAU, exact=mode == "exact")
+        assert fields_packed.launches == before
+        want = (treg.precompute_fields_packed2(t) if mode == "exact"
+                else treg.precompute_fields_packed(t, tau=TAU))
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -4,8 +4,8 @@ written exactly once, and each of its six neighbour reads is the voxel
 ``torch.roll`` of an index tensor puts there.  Small shapes cover the degenerate extents (1 and 2, where x-1 ==
 x+1), Y*Z a multiple of 8 and Y*Z above one tile; the full 625 x 625 x 235
 window and the default 625 x 625 x 391 are checked on a few planes (index
-only).  The packed fields gathered through the model's reads equal the JAX
-package's on the same numpy inputs."""
+only).  The packed and the parity fields gathered through the model's
+reads equal the JAX package's on the same numpy inputs."""
 import re
 from pathlib import Path
 
@@ -16,8 +16,11 @@ import torch
 
 from warpsense_tpu.map.local_map import LocalMapState as JState
 from warpsense_tpu.ops import registration as jreg
+from warpsense_tpu_torch.core.geometry import div_trunc
 from warpsense_tpu_torch.kernels import fields as kf
 from warpsense_tpu_torch.ops import registration as treg
+
+from _fields_window import PLANTED, planted_window
 
 SRC = Path(kf.__file__).resolve().parent.parent / "csrc" / "fields.cu"
 SMALL = [(1, 5, 7), (2, 3, 1), (5, 7, 3), (9, 16, 32), (3, 40, 391),
@@ -81,25 +84,50 @@ def test_default_window_fits_shared_memory():
     assert kf.smem_bytes(100_000) > kf.MAX_SMEM_BYTES
 
 
+def _parity_planes(v, w, neighbors):
+    """The parity planes (vw, gxy, gz) of voxels ``v``/``w`` from their
+    per-axis neighbour tuples ``[(nv, pv, nw, pw)] * 3``, as K2's parity
+    mode computes them: the gradient where both neighbours carry weight and
+    their values have no strictly opposite signs."""
+    grads = []
+    for nv, pv, nw, pw in neighbors:
+        flips = ((nv > 0) & (pv < 0)) | ((nv < 0) & (pv > 0))
+        keep = (nw != 0) & (pw != 0) & ~flips
+        grads.append(torch.where(keep, div_trunc(nv - pv, 2),
+                                 torch.zeros_like(nv)))
+    return (treg._pack16(v, w), treg._pack16(grads[0], grads[1]),
+            treg._pack16(grads[2], torch.zeros_like(v)))
+
+
+@pytest.mark.parametrize("mode", ["packed", "parity"])
 @pytest.mark.parametrize("shape", [(5, 7, 3), (9, 16, 32)])
-def test_fields_through_the_model_match_jax(shape):
-    """Packed fields computed from the model's neighbour reads equal the
-    JAX package's roll formulation on the same numpy window."""
+def test_fields_through_the_model_match_jax(shape, mode):
+    """Packed and parity fields computed from the model's neighbour
+    reads equal the JAX package's roll formulation on the same numpy
+    window."""
     tau = 600
-    rng = np.random.default_rng(sum(shape))
-    v = rng.integers(-32768, 32768, shape, dtype=np.int16)
-    w = (rng.random(shape) < 0.7).astype(np.int16) * rng.integers(
-        1, 64, shape).astype(np.int16)
+    v, w = planted_window(shape, sum(shape))
     plan = kf.plan_neighbors(shape)
     vf = torch.from_numpy(v).reshape(-1).to(torch.int32)
     wf = torch.from_numpy(w).reshape(-1).to(torch.int32)
     nb = plan.neighbors
     neighbors = [(vf[nb[:, 2 * a]], vf[nb[:, 2 * a + 1]],
                   wf[nb[:, 2 * a]], wf[nb[:, 2 * a + 1]]) for a in range(3)]
-    got = torch.empty(vf.shape, dtype=torch.int32)
-    got[plan.index] = treg.packed_plane_from_neighbors(
-        vf[plan.index], wf[plan.index], neighbors, tau=tau)
     j = JState(value=jnp.asarray(v), weight=jnp.asarray(w),
                pos=jnp.zeros(3, jnp.int32), offset=jnp.zeros(3, jnp.int32))
-    want = np.asarray(jreg.precompute_fields_packed(j, tau=tau).plane)
-    np.testing.assert_array_equal(got.reshape(shape).numpy(), want)
+    if mode == "packed":
+        planes = [treg.packed_plane_from_neighbors(
+            vf[plan.index], wf[plan.index], neighbors, tau=tau)]
+        want = [jreg.precompute_fields_packed(j, tau=tau).plane]
+    else:
+        planes = _parity_planes(vf[plan.index], wf[plan.index], neighbors)
+        want = jreg.precompute_fields(j)
+        # plane 1 reads every planted pair across x
+        nv, pv = neighbors[0][:2]
+        for p, n in PLANTED:
+            assert bool(((nv == n) & (pv == p)).any()), (p, n)
+    for plane, ref in zip(planes, want):
+        got = torch.empty(vf.shape, dtype=torch.int32)
+        got[plan.index] = plane
+        np.testing.assert_array_equal(got.reshape(shape).numpy(),
+                                      np.asarray(ref))

@@ -18,7 +18,11 @@ checks and the timing are chip_smoke.py's (this checkout's):
 * k2: K2's packed and exact times at 625 x 625 x 235 on chip_smoke's seeded
   full-range window, after ``check_fields`` has held the ROOT's kernel to
   its plain versions on it: one call and per launch (``time_fields``),
-  with the copy yardstick beside them;
+  with the copy yardstick beside them; then the parity fields on the
+  seeded window at configs/default.yaml's 625 x 625 x 391: the plain
+  ``precompute_fields`` (``k2_parity_plain_ms``) and, where the ROOT has
+  it, K2's parity mode (``fields_parity``) after ``check_fields_parity``,
+  timed as the other modes;
 * loop: the registration loop kernel (a checkout that has it) on
   chip_smoke's REGLOOP problems (``time_loops``): its device time an
   iteration on the whole cloud and on every 1,024th point, and one
@@ -113,6 +117,19 @@ def time_root(root: str, kernels) -> dict:
         for name, t in cs.time_fields(torch, cs.FULL, state).items():
             for key in ("ms", "per_launch_ms", "copy_ms"):
                 out[f"k2_{name}_{key}"] = t[key]
+        del state
+        torch.cuda.empty_cache()
+        from warpsense_tpu_torch.kernels import fields as kf
+        from warpsense_tpu_torch.ops.registration import precompute_fields
+        cfg = cs.default_fusion_cfg()
+        state = cs.seeded_fields_state(torch, cfg["size"], device)
+        if hasattr(kf, "fields_parity"):
+            cs.check_fields_parity(torch, state, "seeded_default")
+            t = cs.time_fields(torch, cfg, state, ("parity",))["parity"]
+            for key in ("ms", "per_launch_ms", "copy_ms"):
+                out[f"k2_parity_{key}"] = t[key]
+        out["k2_parity_plain_ms"] = cs.time_ms(
+            torch, lambda: precompute_fields(state), reps=5)
         del state
         torch.cuda.empty_cache()
     if "loop" in kernels:

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Count the SASS instructions of K1's general sweep per voxel, for one or
-more checkouts, and set them against the card's issue rate.
+more checkouts, and set them against the card's issue rate; or, with
+``--fields``, count K2's instantiations.
 
     python3 tools/sass_count.py ROOT [ROOT ...]
+    python3 tools/sass_count.py --fields ROOT [ROOT ...]
 
 Each ROOT holds a ``warpsense_tpu_torch`` package (``.``, or a checkout of
 another commit unpacked with ``git archive`` into a gitignored directory).
@@ -34,9 +36,17 @@ Both add the prologue once a column.
 ``issue_floor_ms`` = warp instructions / (SMs x 4 issue slots x the SM's
 highest clock): the least time the card could take to issue them.  The
 first line is the card's name and power limit as nvidia-smi gives them.
+
+``--fields``: ROOT's ``csrc/fields.cu`` is compiled the same way and each
+instantiation of ``fields_kernel`` is listed by mode (packed, exact,
+parity; a checkout with a bool template parameter has the first two):
+its instructions, those that are not NOP, and a digest of the
+instruction text without addresses, so that two checkouts' SASS of one
+mode can be told equal or not.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import subprocess
@@ -49,8 +59,8 @@ _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRA = re.compile(r"^(@!?U?P\w+\s+)?BRA\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)")
 
 
-def disassemble(root: Path, tag: str) -> str:
-    """cuobjdump -sass of ``root``'s fusion.cu, built as chip_smoke's build
+def disassemble(root: Path, tag: str, source: str = "fusion.cu") -> str:
+    """cuobjdump -sass of ``root``'s ``source``, built as chip_smoke's build
     would build it (the shared-library flags left out); the cubin and the
     SASS are kept as chiprun_out/sass/<tag>.*."""
     from warpsense_tpu_torch.kernels import _build
@@ -60,7 +70,7 @@ def disassemble(root: Path, tag: str) -> str:
     OUT.mkdir(parents=True, exist_ok=True)
     cubin = OUT / f"{tag}.cubin"
     subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin),
-                    str(root / "warpsense_tpu_torch" / "csrc" / "fusion.cu")],
+                    str(root / "warpsense_tpu_torch" / "csrc" / source)],
                    check=True)
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(cubin)], check=True,
@@ -78,6 +88,29 @@ def function_sass(sass: str, name: str) -> list[tuple[int, str]]:
         if re.search(rf"\d{name}E", head):
             return [(int(a, 16), t) for a, t in _INSTR.findall(body)]
     raise ValueError(f"no function {name} in the SASS")
+
+
+# fields_kernel's template argument in its mangled name: a bool (EXACT) or
+# the Mode enum, each by its number
+_FIELDS_MODE = re.compile(r"fields_kernelIL(?:b|\w*ModeE)(\d)E")
+FIELDS_MODES = ("packed", "exact", "parity")
+
+
+def fields_counts(sass: str) -> dict:
+    """{mode: {instructions, not_nop, digest}} of every fields_kernel
+    instantiation in ``sass``."""
+    out = {}
+    for b in re.split(r"\n\s*Function : ", sass)[1:]:
+        head, _, body = b.partition("\n")
+        m = _FIELDS_MODE.search(head)
+        if not m:
+            continue
+        code = [t for _, t in _INSTR.findall(body)]
+        out[FIELDS_MODES[int(m.group(1))]] = dict(
+            function=head.strip(), instructions=len(code),
+            not_nop=sum(not t.startswith("NOP") for t in code),
+            digest=hashlib.sha256("\n".join(code).encode()).hexdigest()[:16])
+    return out
 
 
 def loop_paths(code: list[tuple[int, str]]) -> dict:
@@ -166,6 +199,12 @@ def main(argv: list[str]) -> int:
         print(__doc__.split("\n\n")[1], file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    if argv[1] == "--fields":
+        for k, root in enumerate(argv[2:]):
+            sass = disassemble(Path(root), f"fields{k}", "fields.cu")
+            print(json.dumps(dict(root=root, **fields_counts(sass))),
+                  flush=True)
+        return 0
     import torch
     import chip_smoke as cs
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"

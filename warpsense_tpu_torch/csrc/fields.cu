@@ -1,20 +1,26 @@
-// Kernel K2: packed registration fields (7-point stencil with ring wrap).
+// Kernel K2: registration fields (7-point stencil with ring wrap).
 //
 // Replaces the TPU kernel warpsense_tpu/kernels/fields_pallas.py
-// `_rolling_kernel` (through `_rolling_call`), in both of its modes:
-//   * packed (EXACT=false): one int32 plane v:8|gx:8|gy:8|gz:8 — value and
+// `_rolling_kernel` (through `_rolling_call`), in both of its modes, and
+// computes the parity fields that the JAX package leaves to XLA
+// (warpsense_tpu/ops/registration.py precompute_fields), in three modes:
+//   * packed (kPacked): one int32 plane v:8|gx:8|gy:8|gz:8 — value and
 //     gradients quantized with a round-to-nearest shift, +128, clipped to
 //     [1, 255], value code 0 where the weight is 0;
-//   * exact (EXACT=true): two int32 planes v:16|gx:16 and gy:16|gz:16,
-//     value -32768 where the weight is 0.
+//   * exact (kExact): two int32 planes v:16|gx:16 and gy:16|gz:16,
+//     value -32768 where the weight is 0;
+//   * parity (kParity): three int32 planes weight<<16 | value,
+//     gy<<16 | gx and gz (high half zero), each gradient also 0 where the
+//     neighbours' values have strictly opposite signs.
 // Per axis the gradient is the C-truncated (v[+1] - v[-1]) / 2 where both
 // neighbours carry weight, else 0; neighbours wrap around the window like
-// jnp.roll (ops/registration.py precompute_fields_packed{,2}).
+// jnp.roll (ops/registration.py precompute_fields{,_packed,_packed2}).
 //
 // What bounds it on an H100: bytes.  The function reads the int16 value and
-// weight planes once and writes one int32 plane (two in exact mode): 8 B a
-// voxel packed, 12 B exact, 0.219 / 0.329 ms at 3.35 TB/s for the
-// 625 x 625 x 235 window.  It does no float work, and its integer work is a
+// weight planes once and writes one int32 plane (two exact, three parity):
+// 8 B a voxel packed, 12 B exact, 16 B parity; 0.219 / 0.329 ms at 3.35
+// TB/s for the 625 x 625 x 235 window, 0.729 ms parity at the default
+// 625 x 625 x 391.  It does no float work, and its integer work is a
 // few dozen instructions a voxel.  A thread per voxel reading its seven
 // neighbours from global memory spends its time on index arithmetic (the
 // divisions that find x, y, z) and load instructions, and fetches each
@@ -55,8 +61,16 @@ constexpr int kPer = kTile / kThreads;    // positions per thread and plane
 constexpr int kRun = 16;                  // planes per block
 constexpr int kSlots = 4;                 // x-1, x, x+1 and x+2 in flight
 
+// what the kernel writes a voxel (the header's three modes)
+enum Mode { kPacked, kExact, kParity };
+
+// The gradient of one axis; in parity mode also 0 where the value changes
+// sign across the cell, (nv > 0 && pv < 0) || (nv < 0 && pv > 0), which
+// for int16 values is nv * pv < 0 (|nv * pv| <= 2^30: no overflow)
+template <Mode MODE>
 __device__ __forceinline__ int grad(int nv, int pv, int nw, int pw) {
-  return (nw != 0 && pw != 0) ? (nv - pv) / 2 : 0;   // C `/` truncates
+  const bool ok = nw != 0 && pw != 0 && (MODE != kParity || nv * pv >= 0);
+  return ok ? (nv - pv) / 2 : 0;                     // C `/` truncates
 }
 
 // The round-to-nearest shift of the packing and its +128 in one bias:
@@ -127,11 +141,13 @@ __device__ __forceinline__ int lds16(unsigned addr) {
 // position 0 of the staged planes x, x-1, x+1 (value at +2q, weight at
 // +2q + wb bytes).  EDGE: the block's tile touches the plane's first or
 // last row or its ragged end, so positions are masked and rows 0 and Y-1
-// read their wrapped y-neighbour from global memory.
-template <bool EXACT, bool EDGE>
+// read their wrapped y-neighbour from global memory.  out_a, out_b,
+// out_c: the mode's planes in the header's order (packed: out_a only).
+template <Mode MODE, bool EDGE>
 __device__ __forceinline__ void tile_fields(
     const int16_t* __restrict__ v, const int16_t* __restrict__ w,
-    int32_t* __restrict__ out_a, int32_t* __restrict__ out_b, unsigned c,
+    int32_t* __restrict__ out_a, int32_t* __restrict__ out_b,
+    int32_t* __restrict__ out_c, unsigned c,
     unsigned pn, unsigned nx, unsigned wb, unsigned xbase, unsigned P,
     unsigned Z, unsigned t0, unsigned zstart, unsigned zstep, int vbias,
     int vs, int gbias, int gs) {
@@ -164,11 +180,15 @@ __device__ __forceinline__ void tile_fields(
       const unsigned zp = z == 0 ? a + 2 * zlast : a - 2;
       const int zn_v = lds16(zn), zn_w = lds16(zn + wb);
       const int zp_v = lds16(zp), zp_w = lds16(zp + wb);
-      const int g0 = grad(xn_v, xp_v, xn_w, xp_w);
-      const int g1 = grad(yn_v, yp_v, yn_w, yp_w);
-      const int g2 = grad(zn_v, zp_v, zn_w, zp_w);
+      const int g0 = grad<MODE>(xn_v, xp_v, xn_w, xp_w);
+      const int g1 = grad<MODE>(yn_v, yp_v, yn_w, yp_w);
+      const int g2 = grad<MODE>(zn_v, zp_v, zn_w, zp_w);
       const unsigned i = xbase + q;
-      if (EXACT) {
+      if (MODE == kParity) {
+        out_a[i] = (int32_t)(((uint32_t)w0 << 16) | (uint32_t)(v0 & 0xFFFF));
+        out_b[i] = (int32_t)(((uint32_t)g1 << 16) | (uint32_t)(g0 & 0xFFFF));
+        out_c[i] = g2 & 0xFFFF;
+      } else if (MODE == kExact) {
         const int vsent = w0 != 0 ? v0 : -32768;
         out_a[i] = (int32_t)(((uint32_t)(g0 & 0xFFFF) << 16)
                              | (uint32_t)(vsent & 0xFFFF));
@@ -186,12 +206,13 @@ __device__ __forceinline__ void tile_fields(
   }
 }
 
-template <bool EXACT>
+// out_c last, so that the other parameters keep their offsets in every mode
+template <Mode MODE>
 __global__ void __launch_bounds__(kThreads)
 fields_kernel(const int16_t* __restrict__ v, const int16_t* __restrict__ w,
               int32_t* __restrict__ out_a, int32_t* __restrict__ out_b,
               int X, int Y, int Z, int vs, int gs, int tiles, int span,
-              int mis) {
+              int mis, int32_t* __restrict__ out_c) {
   extern __shared__ __align__(16) int16_t smem[];
   const unsigned P = (unsigned)Y * Z, total = (unsigned)X * P;
   // the 16-byte boundaries at or below the planes' starts
@@ -243,13 +264,37 @@ fields_kernel(const int16_t* __restrict__ v, const int16_t* __restrict__ w,
     const unsigned nx = base + 2 * offset(j + 1);
     const unsigned xbase = plane(j) * P;
     if (edge)
-      tile_fields<EXACT, true>(v, w, out_a, out_b, c, pn, nx, wb, xbase, P,
-                               Z, t0, zstart, zstep, vbias, vs, gbias, gs);
+      tile_fields<MODE, true>(v, w, out_a, out_b, out_c, c, pn, nx, wb,
+                              xbase, P, Z, t0, zstart, zstep, vbias, vs,
+                              gbias, gs);
     else
-      tile_fields<EXACT, false>(v, w, out_a, out_b, c, pn, nx, wb, xbase, P,
-                                Z, t0, zstart, zstep, vbias, vs, gbias, gs);
+      tile_fields<MODE, false>(v, w, out_a, out_b, out_c, c, pn, nx, wb,
+                               xbase, P, Z, t0, zstart, zstep, vbias, vs,
+                               gbias, gs);
     __syncthreads();                     // slot of slice j - 1 is free
   }
+}
+
+// One launch of the kernel in mode MODE on the stream; cudaGetLastError.
+template <Mode MODE>
+int launch(const void* value, const void* weight, void* out_a, void* out_b,
+           void* out_c, int X, int Y, int Z, int vs, int gs, void* stream) {
+  const int mis = (int)(((uintptr_t)value & 15u) >> 1);
+  const unsigned P = (unsigned)Y * Z;
+  const int tiles = (int)((P + kTile - 1) / kTile);
+  const int runs = (X + kRun - 1) / kRun;
+  // a staged plane: tile + 2 halos, the misalignment (< 8) and the last
+  // 16-byte copy's rounding (< 8), in elements, a multiple of 8
+  const int span = (kTile + 2 * Z + 14 + 7) / 8 * 8;
+  const int smem = kSlots * 2 * span * (int)sizeof(int16_t);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fields_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fields_kernel<MODE><<<(unsigned)tiles * runs, kThreads, smem,
+                        (cudaStream_t)stream>>>(
+      (const int16_t*)value, (const int16_t*)weight, (int32_t*)out_a,
+      (int32_t*)out_b, X, Y, Z, vs, gs, tiles, span, mis, (int32_t*)out_c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -261,35 +306,15 @@ extern "C" int ws_fields_packed(const void* value, const void* weight,
                                 void* out_a, void* out_b, int X, int Y,
                                 int Z, int vs, int gs, int exact,
                                 void* stream) {
-  const int mis = (int)(((uintptr_t)value & 15u) >> 1);
-  const unsigned P = (unsigned)Y * Z;
-  const int tiles = (int)((P + kTile - 1) / kTile);
-  const int runs = (X + kRun - 1) / kRun;
-  // a staged plane: tile + 2 halos, the misalignment (< 8) and the last
-  // 16-byte copy's rounding (< 8), in elements, a multiple of 8
-  const int span = (kTile + 2 * Z + 14 + 7) / 8 * 8;
-  const int smem = kSlots * 2 * span * (int)sizeof(int16_t);
-  cudaStream_t s = (cudaStream_t)stream;
-  auto* v = (const int16_t*)value;
-  auto* w = (const int16_t*)weight;
-  auto* a = (int32_t*)out_a;
-  auto* b = (int32_t*)out_b;
-  const unsigned blocks = (unsigned)tiles * runs;
-  cudaError_t err;
-  if (exact) {
-    err = cudaFuncSetAttribute(fields_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    fields_kernel<true><<<blocks, kThreads, smem, s>>>(
-        v, w, a, b, X, Y, Z, vs, gs, tiles, span, mis);
-  } else {
-    err = cudaFuncSetAttribute(fields_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    fields_kernel<false><<<blocks, kThreads, smem, s>>>(
-        v, w, a, b, X, Y, Z, vs, gs, tiles, span, mis);
-  }
-  return (int)cudaGetLastError();
+  return exact ? launch<kExact>(value, weight, out_a, out_b, nullptr, X, Y,
+                                Z, vs, gs, stream)
+               : launch<kPacked>(value, weight, out_a, out_b, nullptr, X, Y,
+                                 Z, vs, gs, stream);
+}
+
+// The parity planes vw, gxy and gz (ops/registration.py RegistrationFields)
+extern "C" int ws_fields_parity(const void* value, const void* weight,
+                                void* vw, void* gxy, void* gz, int X, int Y,
+                                int Z, void* stream) {
+  return launch<kParity>(value, weight, vw, gxy, gz, X, Y, Z, 0, 0, stream);
 }

@@ -1,12 +1,16 @@
-"""Wrapper of CUDA kernel K2 (``csrc/fields.cu``): packed registration
-fields from the map window.
+"""Wrappers of CUDA kernel K2 (``csrc/fields.cu``): registration fields
+from the map window.
 
-Replaces the TPU kernel ``warpsense_tpu/kernels/fields_pallas.py``
-``_rolling_kernel`` in both modes (packed one-plane and exact two-plane).
-A CUDA state launches the kernel (or raises); a CPU state runs the plain
-PyTorch versions ``ops/registration.precompute_fields_packed{,2}``.  A
-weight plane at another offset from a 16-byte boundary than the value
-plane is first copied to the value's offset (``staged_copies`` counts it).
+``fields_packed`` replaces the TPU kernel
+``warpsense_tpu/kernels/fields_pallas.py`` ``_rolling_kernel`` in both
+modes (packed one-plane and exact two-plane); ``fields_parity`` computes
+the parity mode's three planes (``RegistrationFields``), which the JAX
+package leaves to XLA.  A CUDA state launches the kernel (or raises); a
+CPU state runs the plain PyTorch versions
+``ops/registration.precompute_fields_packed{,2}`` and
+``precompute_fields``.  A weight plane at another offset from a 16-byte
+boundary than the value plane is first copied to the value's offset
+(each wrapper's ``staged_copies`` counts it).
 
 ``plan_neighbors`` is the plain model of the kernel's addressing (its tile
 plan, the staged halo, the z counter and the three wrap rules);
@@ -21,7 +25,8 @@ import torch
 
 from ..map.local_map import LocalMapState
 from ..ops.registration import (PackedFields, PackedFields2,
-                                packed_shifts, precompute_fields_packed,
+                                RegistrationFields, packed_shifts,
+                                precompute_fields, precompute_fields_packed,
                                 precompute_fields_packed2)
 from . import _build
 
@@ -45,20 +50,23 @@ def smem_bytes(Z: int) -> int:
 
 def _lib():
     lib = _build.load("fields")
-    fn = lib.ws_fields_packed
-    if fn.argtypes is None:
-        fn.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]
-        fn.restype = _I
+    if lib.ws_fields_packed.argtypes is None:
+        lib.ws_fields_packed.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                         _I, _I, _VP]
+        lib.ws_fields_packed.restype = _I
+        lib.ws_fields_parity.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                         _VP]
+        lib.ws_fields_parity.restype = _I
     return lib
 
 
-def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
-    """``PackedFields`` (or ``PackedFields2`` with ``exact=True``) of the
-    window in ``state``; the planes are new int32 tensors."""
+def _kernel_planes(state: LocalMapState, wrapper):
+    """The value and weight planes of a CUDA ``state`` as the kernel takes
+    them: checked (int16, contiguous, one shape, within the 32-bit voxel
+    index and the shared-memory stage), the weight copied to the value's
+    offset from a 16-byte boundary where it lies at another (counted in
+    ``wrapper.staged_copies``)."""
     value, weight = state.value, state.weight
-    if value.device.type == "cpu":
-        return (precompute_fields_packed2(state) if exact
-                else precompute_fields_packed(state, tau=tau))
     if value.device.type != "cuda":
         raise ValueError(f"unsupported device {value.device}")
     if value.dtype != torch.int16 or weight.dtype != torch.int16:
@@ -68,19 +76,29 @@ def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
         raise ValueError("value/weight must be contiguous and of one shape")
     if value.data_ptr() % 16 != weight.data_ptr() % 16:
         weight = _aligned_like(weight, value)
-        fields_packed.staged_copies += 1
+        wrapper.staged_copies += 1
     X, Y, Z = value.shape
     if X * Y * Z > _build.MAX_VOXELS:
         raise ValueError("window exceeds the kernel's 32-bit voxel index")
     if smem_bytes(Z) > MAX_SMEM_BYTES:
         raise ValueError(f"z extent {Z} exceeds the kernel's shared-memory "
                          "stage")
+    return value, weight
+
+
+def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
+    """``PackedFields`` (or ``PackedFields2`` with ``exact=True``) of the
+    window in ``state``; the planes are new int32 tensors."""
+    if state.value.device.type == "cpu":
+        return (precompute_fields_packed2(state) if exact
+                else precompute_fields_packed(state, tau=tau))
+    value, weight = _kernel_planes(state, fields_packed)
     vs, gs = packed_shifts(tau)
     a = torch.empty(value.shape, dtype=torch.int32, device=value.device)
     b = torch.empty_like(a) if exact else a
     rc = _lib().ws_fields_packed(
         value.data_ptr(), weight.data_ptr(), a.data_ptr(), b.data_ptr(),
-        X, Y, Z, vs, gs, int(bool(exact)),
+        *value.shape, vs, gs, int(bool(exact)),
         torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(rc, "fields kernel K2")
     fields_packed.launches += 1
@@ -90,6 +108,28 @@ def fields_packed(state: LocalMapState, *, tau: int, exact: bool = False):
 
 fields_packed.launches = 0
 fields_packed.staged_copies = 0
+
+
+def fields_parity(state: LocalMapState) -> RegistrationFields:
+    """The parity mode's ``RegistrationFields`` of the window in ``state``
+    (K2's parity mode on the card, ``precompute_fields`` on the CPU, the
+    same bits); the planes are new int32 tensors."""
+    if state.value.device.type == "cpu":
+        return precompute_fields(state)
+    value, weight = _kernel_planes(state, fields_parity)
+    vw, gxy, gz = (torch.empty(value.shape, dtype=torch.int32,
+                               device=value.device) for _ in range(3))
+    rc = _lib().ws_fields_parity(
+        value.data_ptr(), weight.data_ptr(), vw.data_ptr(), gxy.data_ptr(),
+        gz.data_ptr(), *value.shape,
+        torch.cuda.current_stream(value.device).cuda_stream)
+    _build.check(rc, "fields kernel K2 (parity)")
+    fields_parity.launches += 1
+    return RegistrationFields(vw=vw, gxy=gxy, gz=gz)
+
+
+fields_parity.launches = 0
+fields_parity.staged_copies = 0
 
 
 def _aligned_like(weight: torch.Tensor, value: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,11 @@ registration.cu:14-257 and tsdf_registration.cpp:28-105):
   reference's scheme — value/weight and the sign-change-rejecting
   central-difference gradient in three int32 planes, the un-normalized
   voxel gradient, the rotation centered on the initial translation and the
-  linear Levenberg ramp;
+  linear Levenberg ramp; the apps and the sharded registration compute the
+  planes through ``kernels/fields.fields_parity`` (CUDA kernel K2's parity
+  mode on the card), whose plain version, run for a CPU state, is the roll
+  formulation here (``jacobian_stats`` and ``register_cloud`` run it on
+  any device);
 * fast mode: the map's value and per-axis gradient are precomputed once per map change
   into one int32 plane (byte layout v:8|gx:8|gy:8|gz:8, ``PackedFields``)
   or two exact planes (``PackedFields2``); CUDA kernel K2
@@ -66,7 +70,9 @@ def precompute_fields(state: LocalMapState) -> RegistrationFields:
     with the JAX function: per axis the C-trunc central difference where
     both ring neighbours have weight and the value does not change sign
     across the cell (registration.cu:225-246 hoisted to per voxel), else
-    0.  One axis at a time, so the peak scratch is four rolled planes."""
+    0.  One axis at a time, so the peak scratch is four rolled planes.
+    The plain version of K2's parity mode (``kernels/fields.fields_parity``,
+    which runs this for a CPU state)."""
     v = state.value.to(torch.int32)
     w = state.weight.to(torch.int32)
     grads = []

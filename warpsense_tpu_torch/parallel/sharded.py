@@ -50,8 +50,7 @@ from ..ops.registration import (CHUNK, LAYOUT_EXACT, LAYOUT_PACKED,
                                 LAYOUT_PARITY, S_ACC, S_ERR, S_FIN, S_HEAD,
                                 S_I, S_TRIAL, STATE_LEN, PackedFields,
                                 PackedFields2, RegistrationFields, RegProblem,
-                                count_registration, init_state,
-                                precompute_fields, stopped)
+                                count_registration, init_state, stopped)
 from ..ops.tsdf import tsdf_update
 from ..ops.tsdf_projective import check_fusion_config, fusion_inputs
 from ..utils.device import resolve_device
@@ -314,10 +313,12 @@ def register_cloud_sharded(state: LocalMapState, points, mask, pretransform,
     """Sharded Gauss-Newton registration: the contract of
     ``ops.registration.register_cloud`` with the map x-sharded.  The
     parity fields are computed on the rank's slab padded with its halo
-    planes (the plain ``precompute_fields``); the loop is
+    planes (kernel K2's parity mode, its plain version on the CPU: the
+    x wrap of the padded slab is the window's); the loop is
     ``run_registration_sharded``.  The refined 4x4 pose (on
     ``mesh.device``) is the same on every rank."""
-    padded = precompute_fields(_padded(state, mesh))
+    from ..kernels.fields import fields_parity
+    padded = fields_parity(_padded(state, mesh))
     prob = _slab_problem(
         mesh, size, fields=RegistrationFields(*(p[1:-1] for p in padded)),
         pos=state.pos, offset=state.offset, points=points, mask=mask,

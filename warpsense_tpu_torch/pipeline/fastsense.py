@@ -44,11 +44,12 @@ import torch
 
 from ..core.config import Params
 from ..io.trajectory import _quat_from_mat
+from ..kernels.fields import fields_parity
 from ..map.global_map import GlobalMap
 from ..map.local_map import LocalMap, clone_state
 from ..obs.profiler import RuntimeEvaluator
 from ..ops.preprocess import preprocess
-from ..ops.registration import precompute_fields, register_cloud_fields
+from ..ops.registration import register_cloud_fields
 from ..ops.tsdf_projective import tsdf_update_projective
 from ..utils.device import resolve_device
 from ..utils.imu import ImuOrientationDiff, ImuSample, MadgwickFilter
@@ -261,7 +262,7 @@ class FastsenseApp:
             channels=lidar.channels, columns=lidar.hresolution,
             vfov_deg=lidar.vfov, level=False)
         t0 = self._lap(times, "fusion", t0)
-        fields = precompute_fields(state)
+        fields = fields_parity(state)
         self._lap(times, "fields", t0)
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
