@@ -59,6 +59,11 @@ def _tilt(deg):
                      [-np.sin(a), 0, np.cos(a)]], np.float32)
 
 
+def _roll(rad):
+    c, s = np.cos(rad), np.sin(rad)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+
+
 def _jfresh():
     return JState(value=jnp.full(SIZE, TAU, jnp.int16),
                   weight=jnp.zeros(SIZE, jnp.int16),
@@ -71,11 +76,11 @@ def _tfresh():
                             [s // 2 for s in SIZE], device="cpu")
 
 
-def _tfuse(st, pts, mask, origin, R, level):
+def _tfuse(st, pts, mask, origin, R, level, vfov=VFOV):
     return ttp.tsdf_update_projective(
         st, torch.as_tensor(pts), torch.as_tensor(mask),
         torch.as_tensor(np.asarray(origin, np.int32)), torch.as_tensor(R),
-        level=level, **KW)
+        level=level, **{**KW, "vfov_deg": vfov})
 
 
 def _assert_same(t, j):
@@ -105,18 +110,25 @@ def test_fusion_bit_exact_level_two_fusions(seed):
     assert int((t.weight != 0).sum()) > 500
 
 
-@pytest.mark.parametrize("deg", [4.0, 11.0])
-def test_fusion_bit_exact_tilted(deg):
+# a handheld OS0-128's case: 90 deg, the widest vertical field of view
+# check_fusion_config admits (beams twice as far apart), tilted and rolled
+_ROLLED = pytest.param(6.0, 90.0, 0.05, id="6.0-vfov90-rolled")
+
+
+@pytest.mark.parametrize("deg,vfov,roll", [
+    pytest.param(4.0, VFOV, 0.0, id="4.0"),
+    pytest.param(11.0, VFOV, 0.0, id="11.0"), _ROLLED])
+def test_fusion_bit_exact_tilted(deg, vfov, roll):
     """Under tilt the port computes the twin's attitude-binned sweep (no
     W=0 beam window): bit-exact against the XLA twin."""
     pts = _room(seed=3)
     mask = np.ones(len(pts), bool)
-    R = _tilt(deg)
+    R = _tilt(deg) @ _roll(roll)
     a = jtp.tsdf_update_projective(_jfresh(), jnp.asarray(pts),
                                    jnp.asarray(mask),
                                    jnp.zeros(3, jnp.int32), jnp.asarray(R),
-                                   **KW)
-    t = _tfuse(_tfresh(), pts, mask, (0, 0, 0), R, level=False)
+                                   **{**KW, "vfov_deg": vfov})
+    t = _tfuse(_tfresh(), pts, mask, (0, 0, 0), R, level=False, vfov=vfov)
     _assert_same(t, a)
     assert int((t.weight != 0).sum()) > 500
 
@@ -182,20 +194,22 @@ def _table(pts, d, ring, col, smm, contract):
 BIG_CH, BIG_COLS = 128, 1024
 
 
-def _bins(d, rng, atan2, asin):
+def _bins(d, rng, atan2, asin, vfov):
     """(ring, col) of each direction, as build_beam_table bins them."""
     sin_el = np.clip(d[:, 2] / np.maximum(rng, np.float32(1.0)), -1, 1)
     az = atan2(np.ascontiguousarray(d[:, 1]), np.ascontiguousarray(d[:, 0]))
     el = asin(sin_el.astype(np.float32))
-    spacing = np.float32(math.radians(VFOV) / (BIG_CH - 1))
-    ring = np.round((np.float32(math.radians(VFOV) / 2) - el) / spacing)
+    spacing = np.float32(math.radians(vfov) / (BIG_CH - 1))
+    ring = np.round((np.float32(math.radians(vfov) / 2) - el) / spacing)
     col = np.round((az + np.float32(math.pi)) / np.float32(2 * math.pi)
                    * np.float32(BIG_COLS)).astype(np.int32) % BIG_COLS
     return ring.astype(np.int32), col
 
 
-@pytest.mark.parametrize("deg", [0.0, 4.0])
-def test_beam_table_against_jax(deg):
+@pytest.mark.parametrize("deg,vfov,roll", [
+    pytest.param(0.0, VFOV, 0.0, id="0.0"),
+    pytest.param(4.0, VFOV, 0.0, id="4.0"), _ROLLED])
+def test_beam_table_against_jax(deg, vfov, roll):
     """The beam table on its own, with the full 32K-point room cloud at a
     128 x 1024 scanner.  Two sources of difference, each pinned here:
 
@@ -213,9 +227,9 @@ def test_beam_table_against_jax(deg):
     from warpsense_tpu.io.synthetic import box_room_cloud
     pts = box_room_cloud(32766, 625 * 64 * 45 // 100, 235 * 64 * 40 // 100)
     mask = np.ones(len(pts), bool)
-    R = _tilt(deg)
+    R = _tilt(deg) @ _roll(roll)
     smm = np.array([32, 32, 32], np.int32)
-    kw = dict(channels=BIG_CH, columns=BIG_COLS, vfov_deg=VFOV)
+    kw = dict(channels=BIG_CH, columns=BIG_COLS, vfov_deg=vfov)
     jr, je = jtp.build_beam_table(jnp.asarray(pts), jnp.asarray(mask),
                                   jnp.asarray(smm), jnp.asarray(R), **kw)
     tr, te = ttp.build_beam_table(torch.as_tensor(pts), torch.as_tensor(mask),
@@ -230,11 +244,12 @@ def test_beam_table_against_jax(deg):
                        + p[:, 2] * R[2, j] for j in range(3)], axis=1)
     jring, jcol = _bins(d_jax, _range(d_jax, True),
                         lambda y, x: np.asarray(jnp.arctan2(y, x)),
-                        lambda v: np.asarray(jnp.arcsin(v)))
+                        lambda v: np.asarray(jnp.arcsin(v)), vfov)
     tring, tcol = _bins(d_port, _range(d_port, False),
                         lambda y, x: torch.atan2(torch.as_tensor(y),
                                                  torch.as_tensor(x)).numpy(),
-                        lambda v: torch.asin(torch.as_tensor(v)).numpy())
+                        lambda v: torch.asin(torch.as_tensor(v)).numpy(),
+                        vfov)
     flips = (jring != tring) | (jcol != tcol)
     assert np.all(np.abs(jring - tring) <= 1)
     assert np.all(np.minimum(np.abs(jcol - tcol),
@@ -249,7 +264,7 @@ def test_beam_table_against_jax(deg):
         np.testing.assert_array_equal(nr, tab[0])
     differ = int(np.sum((jax_tab[0] != port_tab[0])
                         | np.any(jax_tab[1] != port_tab[1], axis=1)))
-    print(f"tilt {deg}: {int(flips.sum())} bin flips; {differ} of "
+    print(f"tilt {deg}, vfov {vfov}: {int(flips.sum())} bin flips; {differ} of "
           f"{int(np.isfinite(port_tab[0]).sum())} beams differ through "
           "contraction")
 
@@ -350,6 +365,21 @@ def test_fusion_dispatch():
     R, level = tfb.grid_rotation_for(pose, VFOV)
     assert not level and np.allclose(R.numpy(), _tilt(3.0))
     assert abs(tfb.sensor_tilt_deg(pose) - 3.0) < 1e-3
+    # "auto" counts the grid it bins on, level or attitude, each call
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    params = Params.from_dict({"lidar": {"channels": CH, "vfov": 90.0,
+                                         "hresolution": COLS}})
+    pts = torch.as_tensor(_room(seed=2))
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    counters = RuntimeEvaluator.get_instance().counters
+    before = [counters().get(f"fusion_grid_{g}", 0)
+              for g in ("level", "attitude")]
+    for tilt in (0.0, 6.0, 1.0):
+        pose[:3, :3] = _tilt(tilt)
+        tfb.fuse_cloud(_tfresh(), pts, mask, pose, params=params, size=SIZE,
+                       fusion="auto")
+    assert [counters()[f"fusion_grid_{g}"] for g in ("level", "attitude")] \
+        == [before[0] + 2, before[1] + 1]
     # the ray march needs its plan (tests/test_torch_raymarch.py runs it);
     # an unknown name is refused ("pallas" is JAX's name of the level
     # path: tests/test_torch_api_parity.py)
@@ -359,3 +389,4 @@ def test_fusion_dispatch():
     with pytest.raises(ValueError, match="unknown fusion"):
         tfb.fuse_cloud(_tfresh(), None, None, pose, params=Params(),
                        size=SIZE, fusion="mosaic")
+

@@ -4,8 +4,9 @@ spans and counters ``WarpsenseApp(profile=True)`` records.
 On the CPU: nesting, parents and scan ids on one thread; a worker thread's
 spans kept apart from the main thread's; the reference's sums and CSV; the
 counters; the chrome-trace export; and a tiny shifting app whose profiled
-run is its unprofiled run to the bit, with its glue span, the shift's four
-phases and the counters of bytes and of the fields cache.
+run is its unprofiled run to the bit, with its glue span, each fusion's
+table and sweep, the shift's four phases and the counters of bytes, of the
+fields cache and of the fusion grids.
 
 On a card (skipped without one): a span waits for the work launched inside
 it without a synchronize; a profiled scan synchronizes exactly as often as
@@ -238,6 +239,14 @@ def test_a_profiled_app_is_the_unprofiled_one_and_times_the_shift():
             assert r.scan == shift.scan
     forms = ev._forms
     assert sum(forms[n].sum for n in PHASES) <= forms["shift"].sum
+    # each fusion's table and sweep, nested in its "tsdf" span
+    for name in ("tsdf.table", "tsdf.sweep"):
+        assert len(names[name]) == len(names["tsdf"])
+        for r in names[name]:
+            assert by_id[r.parent].name == "tsdf"
+            assert r.scan == by_id[r.parent].scan
+    assert forms["tsdf.table"].sum + forms["tsdf.sweep"].sum \
+        <= forms["tsdf"].sum
 
     size = np.asarray(app.local_map.size)
     voxels = sum(abs(int(d[ax])) * int(np.prod(np.delete(size, ax)))
@@ -246,8 +255,12 @@ def test_a_profiled_app_is_the_unprofiled_one_and_times_the_shift():
     assert c["chunk_miss"] > 0
     assert c["fields_cache_hit"] + c["fields_cache_miss"] == len(scans)
     assert c["fields_cache_miss"] == forms["fields"].count
-    # the fields cache counts always; the map's counters with the spans
-    assert c0 == {k: c[k] for k in ("fields_cache_hit", "fields_cache_miss")}
+    assert c["fusion_grid_level"] + c.get("fusion_grid_attitude", 0) \
+        == forms["tsdf"].count
+    # the fields cache and the fusion grids count always; the map's
+    # counters with the spans
+    assert c0 == {k: c[k] for k in c if k.startswith(("fields_cache_",
+                                                      "fusion_grid_"))}
 
 
 # -------------------------------------------------------------------- a card

@@ -16,6 +16,7 @@ order, so the float32 arithmetic rounds identically.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import torch
 
@@ -512,7 +513,8 @@ def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
                            max_weight: int, resolution: int,
                            channels: int = 128, columns: int = 1024,
                            vfov_deg: float = 45.0,
-                           level: bool = False) -> LocalMapState:
+                           level: bool = False,
+                           evaluator=None) -> LocalMapState:
     """One projective fusion step, IN PLACE on ``state.value`` /
     ``state.weight`` (the JAX function donates ``state`` instead); returns
     the same state for call-chaining.
@@ -521,15 +523,25 @@ def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
     (kept on the CPU).  ``level=True`` requires the identity rotation and
     runs K1's level sweep on the card (bit-identical to the
     general one at R = I).  A CUDA state launches kernel K1; a CPU state
-    runs its plain version."""
+    runs its plain version.  ``evaluator``: an
+    ``obs.profiler.RuntimeEvaluator`` that times the two parts as spans,
+    "tsdf.table" (the beam table and the sweep's coordinate grid,
+    ``fusion_inputs``) and "tsdf.sweep" (K1, level or general)."""
     from ..kernels.fusion import fusion_sweep_merge
 
     check_fusion_config(tau, max_weight, vfov_deg)
     kw = dict(tau=tau, resolution=resolution, channels=channels,
               columns=columns, vfov_deg=vfov_deg)
-    rng_tab, endpoint, scanner_mm, cx, cy, cz = fusion_inputs(
-        state, points, points_mask, scanner_pos, rotation, size=size, **kw)
-    fusion_sweep_merge(state.value, state.weight, cx, cy, cz, rng_tab,
-                       endpoint, scanner_mm, rotation, max_weight=max_weight,
-                       level=level, **kw)
+    with _span(evaluator, "tsdf.table"):
+        rng_tab, endpoint, scanner_mm, cx, cy, cz = fusion_inputs(
+            state, points, points_mask, scanner_pos, rotation, size=size,
+            **kw)
+    with _span(evaluator, "tsdf.sweep"):
+        fusion_sweep_merge(state.value, state.weight, cx, cy, cz, rng_tab,
+                           endpoint, scanner_mm, rotation,
+                           max_weight=max_weight, level=level, **kw)
     return state
+
+
+def _span(evaluator, task: str):
+    return nullcontext() if evaluator is None else evaluator.span(task)

@@ -5,6 +5,10 @@ fusion name, picks the beam-grid attitude, and runs the projective update
 or the ray march.  For the projective update the device of the state picks
 the implementation: a CUDA state runs kernel K1 (``kernels/fusion.py``), a
 CPU state its plain version.  The ray march is plain PyTorch on either.
+
+Each projective fusion counts the grid it bins on in the process's
+``obs.profiler.RuntimeEvaluator`` (``fusion_grid_level``,
+``fusion_grid_attitude``; always).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from ..core.consts import MATRIX_RESOLUTION
 from ..core.geometry import to_int_mat, transform_point_fixed
 from ..kernels._build import MAX_VOXELS
 from ..map.local_map import LocalMapState
+from ..obs.profiler import RuntimeEvaluator
 from ..ops.tsdf import tsdf_update
 from ..ops.tsdf_projective import tsdf_update_projective
 
@@ -69,7 +74,8 @@ def resolve_fusion(fusion: str, *, size, channels: int,
 
 def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
                params, size, fusion: str, max_steps: int | None = None,
-               max_isteps: int | None = None) -> LocalMapState:
+               max_isteps: int | None = None,
+               evaluator=None) -> LocalMapState:
     """One fusion step of a map-frame mm cloud captured at ``pose_mm``, IN
     PLACE on ``state``'s planes.
 
@@ -80,7 +86,8 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
     to the attitude grid beyond it), "pallas" or "auto".  "pallas" names
     the JAX package's TPU kernel (``kernels/tsdf_pallas.py``), which gives
     "projective-level"'s bits: here it is that path, K1's level sweep with
-    its general sweep past the tilt envelope."""
+    its general sweep past the tilt envelope.  ``evaluator``: times the
+    projective update's parts (``tsdf_update_projective``)."""
     m = params.map
     fusion = resolve_fusion(fusion, size=size,
                             channels=params.lidar.channels,
@@ -112,8 +119,10 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
             np.asarray(pose_mm, np.float32)[:3, :3].copy()), False
     else:
         grid_rot, level = grid_rotation_for(pose_mm, params.lidar.vfov)
+    RuntimeEvaluator.get_instance().count(
+        "fusion_grid_level" if level else "fusion_grid_attitude")
     return tsdf_update_projective(
         state, pts_mm, mask, scanner_pos, grid_rot, size=size, tau=m.tau,
         max_weight=m.max_weight_scaled, resolution=m.resolution,
         channels=params.lidar.channels, columns=params.lidar.hresolution,
-        vfov_deg=params.lidar.vfov, level=level)
+        vfov_deg=params.lidar.vfov, level=level, evaluator=evaluator)

@@ -68,11 +68,14 @@ class WarpsenseApp:
     time) and a copy of the map after each scan, and each window shift
     before it happens.  ``profile=True`` times the scan's layers as spans
     of ``self.eval`` (``obs.profiler.RuntimeEvaluator``): "total", "glue"
-    (subsample, pad, the copies to the device), "preprocessing", "tsdf",
+    (subsample, pad, the copies to the device), "preprocessing", "tsdf"
+    and its "tsdf.table" and "tsdf.sweep" (``tsdf_update_projective``),
     "registration" and its "fields", "shift" and its phases (see
     ``map.local_map.LocalMap``), each until the work it launched is done,
     with no synchronisation of its own.  The fields-cache counters
-    (``fields_cache_hit``, ``fields_cache_miss``) always count.
+    (``fields_cache_hit``, ``fields_cache_miss``) and the fusion-grid
+    counters (``fusion_grid_level``, ``fusion_grid_attitude``) always
+    count.
     """
 
     def __init__(self, params: Params, map_path: str | Path | None = None,
@@ -291,7 +294,7 @@ class WarpsenseApp:
     def _timed_fuse(self, prof, pts, mask) -> None:
         if prof:
             prof.start("tsdf")
-        self._update_tsdf(pts, mask)
+        self._update_tsdf(pts, mask, evaluator=prof)
         if prof:
             prof.stop("tsdf")
 
@@ -335,14 +338,16 @@ class WarpsenseApp:
         self.last_reg_err = err
         return transform.cpu().numpy()
 
-    def _update_tsdf(self, pts, mask, pose: np.ndarray | None = None) -> None:
+    def _update_tsdf(self, pts, mask, pose: np.ndarray | None = None,
+                     evaluator=None) -> None:
         """Fuse a map-frame cloud captured at ``pose`` (default: the current
-        pose), in place."""
+        pose), in place; ``evaluator`` times its parts (``fuse_cloud``)."""
         if pose is None:
             pose = self.pose
         fuse_cloud(self.state, pts, mask, pose, params=self.params,
                    size=self.local_map.size, fusion=self.fusion,
-                   max_steps=self.max_steps, max_isteps=self.max_isteps)
+                   max_steps=self.max_steps, max_isteps=self.max_isteps,
+                   evaluator=evaluator)
         self._fields = None      # map changed: registration fields stale
 
     def _collect_shift(self) -> None:

@@ -148,10 +148,12 @@ class ShardedWarpsenseApp(WarpsenseApp):
         self.last_reg_err = err
         return transform.cpu().numpy()
 
-    def _update_tsdf(self, pts, mask, pose: np.ndarray | None = None) -> None:
+    def _update_tsdf(self, pts, mask, pose: np.ndarray | None = None,
+                     evaluator=None) -> None:
         """Sharded projective fusion on the level map-aligned beam grid
         inside the tilt envelope (K1's level sweep), with the sensor
-        attitude beyond it (K1's general sweep)."""
+        attitude beyond it (K1's general sweep).  It has no spans of its
+        own parts: ``evaluator`` is ignored."""
         m = self.params.map
         if pose is None:
             pose = self.pose
