@@ -202,6 +202,12 @@ TILT_DEG = 4.0
 REPS = 7
 # the K1 ring-offset case moves the window's ring by these voxels per axis
 RING_SHIFT = (211, 97, 58)
+# the line of the JAX package's build_beam_table, which the table step
+# replaces
+JAX_BEAM_TABLE_LINE = 117
+# the table step's launches, one each a call: a memset of the keys, the
+# bin kernel, prepare_kernel (as the profiler names them)
+TABLE_KERNELS = ("bin_kernel", "prepare_kernel", "Memset")
 # H100 SXM peaks (NVIDIA data sheet) against which bound_ms is counted
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -462,11 +468,11 @@ def fusion_cases(torch):
                  ring=True)]
 
 
-def case_inputs(torch, cfg, state, case, pts, mask):
-    """(state, fusion_inputs) of one K1 case: the state is ``state`` or, for
-    a ring case, a view of its planes with the ring moved."""
-    from warpsense_tpu_torch.ops.tsdf_projective import fusion_inputs
-    device = state.value.device
+def case_window(torch, cfg, state, case, pts, mask):
+    """(state, mask) of one K1 case: the state is ``state`` or, for a ring
+    case, a view of its planes with the ring moved; the mask keeps a
+    wedge case's wedge."""
+    device = state.pos.device
     if case["ring"]:
         size = cfg["size"]
         state = state._replace(
@@ -478,7 +484,15 @@ def case_inputs(torch, cfg, state, case, pts, mask):
     if case["cloud"] == "wedge":
         mask = mask & (pts[:, 0] > 0) & (pts[:, 1].abs() * 100
                                          < 58 * pts[:, 0])
-    spos = torch.tensor(case["scanner"], dtype=torch.int32, device=device)
+    return state, mask
+
+
+def case_inputs(torch, cfg, state, case, pts, mask):
+    """(state, fusion_inputs) of one K1 case (``case_window``)."""
+    from warpsense_tpu_torch.ops.tsdf_projective import fusion_inputs
+    state, mask = case_window(torch, cfg, state, case, pts, mask)
+    spos = torch.tensor(case["scanner"], dtype=torch.int32,
+                        device=state.pos.device)
     return state, fusion_inputs(
         state, pts, mask, spos, case["R"], size=cfg["size"],
         tau=cfg["tau"], resolution=cfg["res"], channels=cfg["channels"],
@@ -536,6 +550,94 @@ def check_fusion(torch, cfg, device):
     if report[0]["fused_voxels"] == 0:
         raise AssertionError("K1 fused nothing")
     return st_k, report
+
+
+def check_fusion_table(torch, cfg, device):
+    """The fusion's table step (``kernels/fusion.fusion_table``: a memset,
+    the bin kernel and prepare_kernel, one call of ``csrc/fusion.cu``)
+    against its plain version on the card, PyTorch's own table, in every
+    K1 case at ``cfg``'s window: rows, maxima and coordinates equal to the
+    bit.  Then its times in the level and tilt cases: ``ms``, one call
+    between CUDA events (median of REPS, as K1's); ``device_us``, its
+    launches' device time under torch.profiler; ``host_ms``, a call and a
+    sync on the host clock; the plain table's (``fusion_inputs``, the
+    eager path the app ran before) ``plain_ms`` and ``plain_host_ms``
+    beside them.  Its floor: the bytes it must move (the points and mask
+    read, the rows, maxima and coordinates written) at HBM_BYTES_PER_S,
+    and its launches, which the profiler counts (``launches_by_kernel``,
+    a call): one of each of TABLE_KERNELS.  ``max_abs_err`` is the largest |kernel - plain|
+    over every output and case."""
+    from warpsense_tpu_torch.kernels.fusion import fusion_table
+    from warpsense_tpu_torch.map.local_map import LocalMapState
+    from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
+                                                         fusion_table_plain)
+    kw = dict(tau=cfg["tau"], resolution=cfg["res"],
+              channels=cfg["channels"], columns=cfg["columns"],
+              vfov_deg=cfg["vfov_deg"])
+    X, Y, Z = cfg["size"]
+    pts, mask = room_points(torch, cfg, device)
+    # the window without planes: the table step reads its ring alone
+    st = LocalMapState(
+        value=torch.empty((X, Y, Z), dtype=torch.int16, device="meta"),
+        weight=None, pos=torch.zeros(3, dtype=torch.int32, device=device),
+        offset=torch.tensor([s // 2 for s in cfg["size"]],
+                            dtype=torch.int32, device=device))
+    out = {"cases": []}
+    for c in fusion_cases(torch):
+        sk, m = case_window(torch, cfg, st, c, pts, mask)
+        args = (pts, m, sk.pos, sk.offset, c["scanner"], c["R"])
+        got = fusion_table(*args, size=cfg["size"], **kw)
+        want = fusion_table_plain(*args, size=cfg["size"], **kw)
+        names = ("beams", "rowmax", "cx", "cy", "cz")
+        bad = {n: int((g.contiguous().view(torch.int32)
+                       != w.contiguous().view(torch.int32)).sum())
+               for n, g, w in zip(names, got, want)}
+        # equal values (a hole's +inf on both sides too) differ by 0
+        err = max(float(torch.where(g == w, 0.0, (g - w).abs()).max())
+                  for g, w in zip(got, want))
+        case = dict(name=c["name"], size=list(cfg["size"]),
+                    hits=int(torch.isfinite(got[0][:, 3]).sum()),
+                    mismatch=bad, max_abs_err=err)
+        log("[table]", json.dumps(case))
+        out["cases"].append(case)
+        if any(bad.values()):
+            raise AssertionError(f"the table step disagrees with its "
+                                 f"plain version: {case}")
+        if c["name"] not in ("level", "tilt"):
+            continue
+
+        def step():
+            fusion_table(*args, size=cfg["size"], **kw)
+
+        def plain():
+            fusion_inputs(sk, pts, m, c["scanner"], c["R"],
+                          size=cfg["size"], **kw)
+
+        def synced(fn):
+            return lambda: (fn(), torch.cuda.synchronize())
+
+        n = int(pts.shape[0])
+        nbytes = n * 13 + 16 * cfg["channels"] * cfg["columns"] \
+            + 4 * (cfg["columns"] + X + Y + Z)
+        dev_us, per_call = kernel_profile(torch, step, TABLE_KERNELS)
+        # the profiler may lose a record (49 memsets of 50 calls, seen on
+        # an H100): a second launch of a kind would read ~2 a call
+        launches = sum(round(v) for v in per_call.values())
+        if any(round(v) != 1 for v in per_call.values()):
+            raise AssertionError(f"the table step launched {per_call} a "
+                                 f"call, not one of each")
+        ms = time_ms(torch, step)
+        t = dict(ms=ms, device_us=dev_us,
+                 device_us_total=sum(dev_us.values()),
+                 host_ms=time_host_ms(synced(step), reps=REPS),
+                 plain_ms=time_ms(torch, plain),
+                 plain_host_ms=time_host_ms(synced(plain), reps=REPS),
+                 launches=launches, launches_by_kernel=per_call,
+                 library_ms=None, **bound(nbytes, 0, ms))
+        out[c["name"]] = t
+        log(f"[time table {c['name']}]", json.dumps(t))
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    return out
 
 
 def default_fusion_cfg() -> dict:
@@ -1616,15 +1718,8 @@ def time_shard_loops(torch, probs, poses) -> dict:
 def kernel_device_us(torch, fn, names, reps=50) -> dict:
     """Mean device time (us) of each kernel whose name holds one of
     ``names``, over ``reps`` calls of ``fn`` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
+    for e in profiled_kernels(torch, fn, reps):
         t = getattr(e, "self_device_time_total", 0)
         for n in names:
             if n in e.key and t > 0:
@@ -1633,6 +1728,39 @@ def kernel_device_us(torch, fn, names, reps=50) -> dict:
     if missing:
         raise AssertionError(f"the profiler saw no {missing}")
     return out
+
+
+def kernel_profile(torch, fn, names, reps=50) -> tuple[dict, dict]:
+    """(mean device time in us of one launch, launches per call of ``fn``)
+    of the kernels whose names hold each of ``names``, summed over every
+    kernel that matches, over ``reps`` calls of ``fn`` under
+    torch.profiler."""
+    total = {n: 0.0 for n in names}
+    count = {n: 0 for n in names}
+    for e in profiled_kernels(torch, fn, reps):
+        t = getattr(e, "self_device_time_total", 0)
+        for n in names:
+            if n in e.key and t > 0:
+                total[n] += t
+                count[n] += e.count
+    missing = [n for n in names if not count[n]]
+    if missing:
+        raise AssertionError(f"the profiler saw no {missing}")
+    return ({n: total[n] / count[n] for n in names},
+            {n: count[n] / reps for n in names})
+
+
+def profiled_kernels(torch, fn, reps):
+    """torch.profiler's averages by name over ``reps`` calls of ``fn``
+    (after one call outside the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
 
 
 def run_regloop(torch, full_state, default_state, device) -> dict:
@@ -1823,13 +1951,15 @@ def default_params(**map_overrides):
 
 def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
-    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.kernels.fusion import (fusion_sweep_merge,
+                                                    fusion_table)
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
     from warpsense_tpu_torch.ops.registration import \
         reset_registration_counts
     fusion_sweep_merge.launches = 0
     fusion_sweep_merge.general_launches = 0
+    fusion_table.launches = 0
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
     fields_parity.launches = 0
@@ -1843,7 +1973,7 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
-    sweep), K2's ("fields", and its aligned copies "fields_staged"; its
+    sweep), the table step's ("fusion_table"), K2's ("fields", and its aligned copies "fields_staged"; its
     parity mode's "fields_parity" and "fields_parity_staged"), the loop
     kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
     ("shard_iter": its fused K4 + K3 iteration, launched from the host or
@@ -1852,12 +1982,14 @@ def read_launches() -> dict:
     registrations, their iterations, header reads (host syncs) and host
     seconds."""
     from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
-    from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+    from warpsense_tpu_torch.kernels.fusion import (fusion_sweep_merge,
+                                                    fusion_table)
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
     from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
+            "fusion_table": fusion_table.launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
             "fields_parity": fields_parity.launches,
@@ -3064,6 +3196,7 @@ def main() -> int:
     card = phase("card", record_card, torch)
     phase("build", build_kernels)
     state, k1 = phase("fusion_check", check_fusion, torch, FULL, device)
+    table = phase("fusion_table", check_fusion_table, torch, FULL, device)
     k2 = phase("fields_check", check_fields_all, torch, state, FULL["tau"],
                device)
     k1_times = phase("fusion_times", time_fusion, torch, FULL, state,
@@ -3079,6 +3212,8 @@ def main() -> int:
                                       torch, default_cfg, device)
     k1_times_default = phase("fusion_times_default", time_fusion, torch,
                              default_cfg, state_default, ("level", "tilt"))
+    table_default = phase("fusion_table_default", check_fusion_table, torch,
+                          default_cfg, device)
     torch.cuda.empty_cache()
     regloop = phase("regloop", run_regloop, torch, state, state_default,
                     device)
@@ -3187,6 +3322,21 @@ def main() -> int:
                                       for k, v in paths.items()},
          "max_abs_err": max(c["max_abs_err"] for c in k1 + k1_default),
          **k1_cases["level_full"], "cases": k1_cases},
+        {"name": "fusion_table", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/fusion.cu",
+         "launched_as": "ws_fusion_table: memset, bin_kernel, "
+                        "prepare_kernel",
+         "replaces": "none: XLA, warpsense_tpu/ops/tsdf_projective.py:"
+                     + str(JAX_BEAM_TABLE_LINE),
+         "launches": app["launches"]["fusion_table"],
+         "launches_by_path": {k: v["fusion_table"]
+                              for k, v in paths.items()},
+         "max_abs_err": max(table["max_abs_err"],
+                            table_default["max_abs_err"]),
+         **entry(table["level"], "device_us_total", "host_ms",
+                 "plain_host_ms", "launches_by_kernel"),
+         "cases": {f"{k}_{w}": t[k] for w, t in (("full", table), (
+             "default", table_default)) for k in ("level", "tilt")}},
         {"name": "fields_K2", "route": "cuda",
          "source": "warpsense_tpu_torch/csrc/fields.cu",
          "replaces": "warpsense_tpu/kernels/fields_pallas.py:79",

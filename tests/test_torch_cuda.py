@@ -28,6 +28,7 @@ from warpsense_tpu_torch.pipeline.fusion_backend import fuse_cloud
 from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
 
 from _fields_window import planted_window
+from _fusion_scenes import SCENES, scene, table_args
 
 TAU, RES = 600, 64
 
@@ -202,6 +203,115 @@ def test_fusion_level_past_the_default_shared_memory(cuda, channels):
     fuse_cloud(st_k, pts, mask, np.eye(4), params=params, size=size,
                fusion="auto")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_fusion_table_kernel_matches_plain(cuda, name):
+    """The fusion's table step on the card (the bin kernel's atan2f /
+    asinf bins, the atomicMin of the keys, prepare_kernel's rows, the
+    coordinates) against its plain version on the card, which builds the
+    table with PyTorch's own kernels: equal bit for bit, counted once."""
+    from warpsense_tpu_torch.kernels.fusion import fusion_table
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.ops.tsdf_projective import fusion_table_plain
+    sc = scene(name, cuda)
+    args, kw = table_args(sc)
+    ev = RuntimeEvaluator.get_instance()
+    counted = ev.counters().get("fusion_table_kernel", 0)
+    launches = fusion_table.launches
+    got = fusion_table(*args, **kw)
+    want = fusion_table_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fusion_table.launches == launches + 1
+    assert ev.counters()["fusion_table_kernel"] == counted + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.device == w.device
+        assert torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+    hits = int(torch.isfinite(got[0][:, 3]).sum())
+    assert (hits == 0) == (name == "empty-mask")
+
+
+@pytest.mark.parametrize("level", [True, False])
+def test_projective_update_on_the_card_equals_the_plain_path(cuda, level):
+    """Two fusions through ``tsdf_update_projective`` on the card (the
+    table step, then K1 on its rows) against the plain path on the card
+    (``fusion_inputs``' PyTorch table, ``sweep_merge_plain``), after a
+    shift: the same planes."""
+    from warpsense_tpu_torch.ops.tsdf_projective import \
+        tsdf_update_projective
+    sc = scene("ring-offset" if level else "6.0-vfov90-rolled", cuda)
+    st_k = create_state(sc["size"], TAU, 0, device=cuda,
+                        force_odd=False)._replace(pos=sc["pos"],
+                                                  offset=sc["offset"])
+    st_p = clone_state(st_k)
+    for step in ((0, 0, 0), (2, -1, 1)):
+        voxel = np.asarray(sc["scanner"], np.int32) + step
+        tsdf_update_projective(st_k, sc["points"], sc["mask"], voxel,
+                               sc["rotation"], size=sc["size"],
+                               max_weight=2048, level=level, **sc["kw"])
+        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
+            st_p, sc["points"], sc["mask"], voxel, sc["rotation"],
+            size=sc["size"], **sc["kw"])
+        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
+                          endpoint, smm, sc["rotation"], max_weight=2048,
+                          **sc["kw"])
+    torch.cuda.synchronize()
+    assert torch.equal(st_k.value, st_p.value)
+    assert torch.equal(st_k.weight, st_p.weight)
+    assert int((st_k.weight != 0).sum()) > 1000
+
+
+def test_fused_scans_build_the_table_without_a_sync(cuda, monkeypatch):
+    """The app's fused scans on the card with PyTorch's sync debug mode at
+    "error" inside every "tsdf.table" span: no host copy and no stream
+    sync there (it raises on one), and ``fusion_table_kernel`` counts one
+    table a fusion."""
+    import contextlib
+
+    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
+    from warpsense_tpu_torch.ops import tsdf_projective as ttp
+    span = ttp._span
+    strict = []
+
+    @contextlib.contextmanager
+    def strict_span(evaluator, task):
+        with span(evaluator, task):
+            if task != "tsdf.table":
+                yield
+                return
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            strict.append(task)
+
+    monkeypatch.setattr(ttp, "_span", strict_span)
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 12, "y": 10, "z": 6}, "shift": 8.0,
+                "update_distance": 0.05},
+        "registration": {"max_iterations": 20, "epsilon": 0.03,
+                         "it_weight_gradient": 0.1, "mode": "fast"},
+        "lidar": {"channels": 16, "hresolution": 128}})
+    scans = _walk_scans(5, 16, 128)
+    ev = RuntimeEvaluator.get_instance()
+    app = WarpsenseApp(params, in_memory_map=True, capacity=2048,
+                       sync_shift=True, device="cuda", profile=True)
+    before = ev.counters()
+    for i, s in enumerate(scans):
+        app.cloud_callback(s, 0.1 * i)
+    torch.cuda.synchronize()
+    app.terminate()
+    after = ev.counters()
+
+    def delta(k):
+        return after.get(k, 0) - before.get(k, 0)
+
+    fusions = delta("fusion_grid_level") + delta("fusion_grid_attitude")
+    assert fusions >= 3 and len(strict) == fusions
+    assert delta("fusion_table_kernel") == fusions
 
 
 def test_segment_sum_is_deterministic_on_the_card(cuda):

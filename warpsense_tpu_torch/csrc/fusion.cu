@@ -31,10 +31,39 @@
 // loads them only for the voxels that pass its beam-free tests (below).
 // chip_smoke.py reports this floor beside the bound (sweep_floor_ms).
 //
-// A call is two launches (three for the general sweep): prepare_kernel
-// turns the beam table into float4 rows (bx, by, bz, range) and each
-// azimuth column's largest finite range; then level_kernel, or
-// general_setup_kernel and general_kernel, sweep and merge.
+// A fusion is two calls.  The table step (ws_fusion_table, below) builds
+// the beam table from the scan and prepare_kernel turns it into float4 rows
+// (bx, by, bz, range) and each azimuth column's largest finite range; then
+// the sweep (ws_fusion_sweep_merge) runs level_kernel, or
+// general_setup_kernel and general_kernel, and merges.  A caller that holds
+// a plain table (ranges and endpoints) prepares its rows with
+// ws_fusion_prepare instead.
+//
+// The table step replaces no TPU kernel: the JAX package builds the table
+// with XLA (ops/tsdf_projective.build_beam_table: bins, a scatter-min,
+// gathers), and so did the port, eagerly, in ~135 small launches and ~9
+// pageable copies with their stream syncs a fusion.  Its work is tiny: it
+// reads the scan's points (12 B each, 32,766 in the app) and writes the
+// rows (16 B x channels x columns, 2 MB at 128 x 1024), ~2.6 MB or under
+// 1 us at 3.35 TB/s, so it is bound by its launches.  Its design: one
+// memset of the key table, one bin kernel (a thread a point, which also
+// writes the sweep's coordinate vectors in extra blocks) and prepare_kernel
+// decoding the keys; no host copy and no sync.  Its bits are
+// build_beam_table's on the card: the bin kernel's own products and sums
+// are __fmul_rn / __fadd_rn (never contracted), the range a double sqrt
+// rounded once, the bins atan2f / asinf, rintf and a floor mod, as
+// PyTorch's atan2 / asin / round / remainder on the card compute them; the
+// nearest return per beam is an atomicMin of the same integer key
+// (range / 8 mm << 17 | point index), which no order of the atomics can
+// change.  The file's -fmad=false is enough for the bins: PyTorch's own
+// atan2 / asin are built with contraction on, but nvcc's atan2f / asinf
+// differ between -fmad=false and -fmad=true only in the .rn qualifier of
+// eleven multiplies and adds, and both builds gave PyTorch's bits on the
+// card for 2^24 inputs of each of three sets (uniform, integer, scaled);
+// the table step equals PyTorch's table bit for bit in every case of
+// chip_smoke.py and tests/test_torch_cuda.py.  Were a bin to move, the
+// bin kernel would move to a source built with contraction on; its own
+// products and sums are intrinsics, which never contract.
 //
 // Design (level_kernel).  A warp takes a tile of kTile (x, y) columns: x is
 // blockIdx.y and y comes from blockIdx.x and the warp index, so no voxel
@@ -346,31 +375,188 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The rows' sources.  A plain table: ranges (+inf at a hole) and endpoints
+// (f32 mm) that the caller built, the scanner (int32 mm) on the device.
+struct PlainTable {
+  const float* rng;
+  const float* endpoint;
+  const int* scanner;
+  __device__ __forceinline__ float4 operator()(int i) const {
+    const float sx = (float)scanner[0], sy = (float)scanner[1],
+                sz = (float)scanner[2];
+    return make_float4(endpoint[3 * i] - sx, endpoint[3 * i + 1] - sy,
+                       endpoint[3 * i + 2] - sz, rng[i]);
+  }
+};
+
+// The table step's keys: a key below kHole holds the nearest point's index
+// in its low bits; a hole's endpoint is 0, so its row is (-scanner, +inf).
+// The range is the endpoint's distance as build_beam_table computes it.
+constexpr unsigned kHole = 1u << 30;      // build_beam_table's sentinel
+constexpr unsigned kIndexBits = 17;       // the point index's bits
+
+struct KeyTable {
+  const unsigned* key;
+  const int* points;
+  float sx, sy, sz;
+  __device__ __forceinline__ float4 operator()(int i) const {
+    const unsigned k = key[i];
+    const bool hit = k < kHole;
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+    if (hit) {
+      const int* p = points + 3 * (k & ((1u << kIndexBits) - 1u));
+      ex = (float)p[0];
+      ey = (float)p[1];
+      ez = (float)p[2];
+    }
+    const float rx = __fsub_rn(ex, sx), ry = __fsub_rn(ey, sy),
+                rz = __fsub_rn(ez, sz);
+    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                               __fmul_rn(rz, rz));
+    return make_float4(rx, ry, rz,
+                       hit ? __double2float_rn(__dsqrt_rn((double)n2))
+                           : __int_as_float(0x7f800000));
+  }
+};
+
 // One warp per azimuth column of the beam table: the float4 rows (bx, by,
 // bz, range) with scanner-relative endpoints (the f32 subtraction the sweep
 // does) and the column's largest finite range (-inf where it has none).
-__global__ void prepare_kernel(const float* __restrict__ rng,
-                               const float* __restrict__ endpoint,
-                               const int* __restrict__ scanner,
-                               float4* __restrict__ beams,
+template <class Table>
+__global__ void prepare_kernel(Table table, float4* __restrict__ beams,
                                float* __restrict__ rowmax, int channels,
                                int columns) {
   const int lane = threadIdx.x & 31;
   const int col = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (col >= columns) return;
-  const float sx = (float)scanner[0], sy = (float)scanner[1],
-              sz = (float)scanner[2];
   float m = -__int_as_float(0x7f800000);         // -inf
   for (int k = lane; k < channels; k += 32) {
     const int i = col * channels + k;
-    const float r = rng[i];
-    beams[i] = make_float4(endpoint[3 * i] - sx, endpoint[3 * i + 1] - sy,
-                           endpoint[3 * i + 2] - sz, r);
-    if (isfinite(r)) m = fmaxf(m, r);
+    const float4 b = table(i);
+    beams[i] = b;
+    if (isfinite(b.w)) m = fmaxf(m, b.w);
   }
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
   if (lane == 0) rowmax[col] = m;
+}
+
+// The table step's constants: floats computed on the host in double and
+// rounded once, as build_beam_table's 0-dim float32 tensors are, ...
+enum {
+  kTR = 0,         // R[0,0] .. R[2,2], row-major (9)
+  kTHalfV = 9,     // radians(vfov) / 2
+  kTSpacing,       // radians(vfov) / (channels - 1)
+  kTPi,            // pi
+  kTTwoPi,         // 2 pi
+  kTColumns,       // float(columns)
+  kTNumConsts
+};
+
+// ... and integers; the Python wrapper packs both in these orders
+enum {
+  kIN = 0,         // points
+  kIChannels,      // the table's channels (rings) ...
+  kIColumns,       // ... and its azimuth columns
+  kISizeX, kISizeY, kISizeZ,  // the whole window
+  kIRowLo, kIRowHi,           // its array x rows [lo, hi) the caller holds
+  kIRes,           // resolution, mm
+  kIVoxX, kIVoxY, kIVoxZ,     // the scanner's voxel
+  kIGrow,          // tau // resolution // 2: the window's growth, voxels
+  kINumInts
+};
+
+struct TableParams {
+  float c[kTNumConsts];
+  int v[kINumInts];
+  const int* pos;                // the window's center voxel (device)
+  const int* offset;             // its ring offset (device)
+};
+
+constexpr int kBinThreads = 256;
+
+__device__ __forceinline__ int floor_div(int a, int b) {   // b > 0
+  const int q = a / b;
+  return (q * b != a && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int floor_mod(int a, int b) {   // b > 0
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// The bin kernel.  Blocks below `point_blocks`: thread i bins point i and,
+// where it is a return, places its key (build_beam_table, with
+// fusion_inputs' gate: the window grown by tau / 2).  The blocks after
+// them write the sweep's coordinate vectors cx (rows [lo, hi)), cy, cz:
+// relative_coords' integer ring arithmetic, then one float conversion.
+__global__ void __launch_bounds__(kBinThreads)
+bin_kernel(const int* __restrict__ points, const bool* __restrict__ mask,
+           unsigned* __restrict__ keys, float* __restrict__ cx,
+           float* __restrict__ cy, float* __restrict__ cz, TableParams p,
+           int point_blocks) {
+  const int* v = p.v;
+  const int res = v[kIRes];
+  const int smm[3] = {v[kIVoxX] * res + res / 2, v[kIVoxY] * res + res / 2,
+                      v[kIVoxZ] * res + res / 2};
+  if ((int)blockIdx.x >= point_blocks) {
+    int k = ((int)blockIdx.x - point_blocks) * kBinThreads + threadIdx.x;
+    const int rows = v[kIRowHi] - v[kIRowLo];
+    int ax, a;
+    float* out;
+    if (k < rows) {
+      ax = 0, a = v[kIRowLo] + k, out = cx + k;
+    } else if ((k -= rows) < v[kISizeY]) {
+      ax = 1, a = k, out = cy + k;
+    } else if ((k -= v[kISizeY]) < v[kISizeZ]) {
+      ax = 2, a = k, out = cz + k;
+    } else {
+      return;
+    }
+    const int s = v[kISizeX + ax];
+    const int g = p.pos[ax] + floor_mod(a - p.offset[ax] + s / 2, s) - s / 2;
+    *out = (float)(g * res + res / 2 - smm[ax]);
+    return;
+  }
+  const int i = blockIdx.x * kBinThreads + threadIdx.x;
+  if (i >= v[kIN] || !mask[i]) return;
+  const int q[3] = {points[3 * i], points[3 * i + 1], points[3 * i + 2]};
+  // the gate: the point's cell inside the window grown by kIGrow voxels
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const int s = v[kISizeX + ax];
+    const int d = floor_div(q[ax], res) - p.pos[ax];
+    if (d < -(s / 2) - v[kIGrow] || d > (s - 1) / 2 + v[kIGrow]) return;
+  }
+  // d = p @ R in the JAX order, ((p0 R0j + p1 R1j) + p2 R2j)
+  const float f0 = (float)(q[0] - smm[0]), f1 = (float)(q[1] - smm[1]),
+              f2 = (float)(q[2] - smm[2]);
+  const float* R = p.c + kTR;
+  float d[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    d[j] = __fadd_rn(__fadd_rn(__fmul_rn(f0, R[j]), __fmul_rn(f1, R[3 + j])),
+                     __fmul_rn(f2, R[6 + j]));
+  const float rr = __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]),
+                                       __fmul_rn(d[1], d[1])),
+                             __fmul_rn(d[2], d[2]));
+  const float rng = __double2float_rn(__dsqrt_rn((double)rr));
+  if (!(rng > 1.0f)) return;
+  const float az = atan2f(d[1], d[0]);
+  const float el = asinf(fminf(fmaxf(__fdiv_rn(d[2], fmaxf(rng, 1.0f)),
+                                     -1.0f), 1.0f));
+  const int ring = (int)rintf(__fdiv_rn(__fsub_rn(p.c[kTHalfV], el),
+                                        p.c[kTSpacing]));
+  if (ring < 0 || ring >= v[kIChannels]) return;
+  const int col = floor_mod(
+      (int)rintf(__fmul_rn(__fdiv_rn(__fadd_rn(az, p.c[kTPi]), p.c[kTTwoPi]),
+                           p.c[kTColumns])),
+      v[kIColumns]);
+  // the nearest return wins; among equal ranges / 8 mm the lower index
+  const unsigned key =
+      ((unsigned)(int)fminf(__fmul_rn(rng, 0.125f), 16383.0f) << kIndexBits)
+      | (unsigned)i;
+  atomicMin(keys + col * v[kIChannels] + ring, key);
 }
 
 // Level sweep (R = I): warp w of CTA (bx, x) takes the tile of kTile
@@ -562,16 +748,67 @@ cudaError_t optin_smem(int* bytes) {
 
 }  // namespace
 
-// Kernel K1: prepare the beam table (float4 rows and row maxima into the
-// caller's `beams` and `rowmax` scratch), then sweep and merge in place.
-// The general sweep (level == 0) also fills the caller's `zterm` scratch,
-// Z + 1 float4; the level sweep ignores it.
+// The table step: the beam table of a scan as K1's float4 rows and row
+// maxima (into the caller's `beams`, channels x columns float4, and
+// `rowmax`, columns floats) and the sweep's coordinate vectors (`cx`,
+// hi - lo floats; `cy`, `cz`), with `keys` (channels x columns uint32) as
+// scratch.  `points` (n, 3) int32 mm and `mask` (n,) bool; `pos`, `offset`
+// int32 (3,) on the device; `consts` and `ints` in the order of kT* and kI*.
+extern "C" int ws_fusion_table(const void* points, const void* mask,
+                               const void* pos, const void* offset,
+                               void* keys, void* beams, void* rowmax,
+                               void* cx, void* cy, void* cz,
+                               const float* consts, const int* ints,
+                               void* stream) {
+  TableParams p;
+  for (int k = 0; k < kTNumConsts; ++k) p.c[k] = consts[k];
+  for (int k = 0; k < kINumInts; ++k) p.v[k] = ints[k];
+  p.pos = (const int*)pos;
+  p.offset = (const int*)offset;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int channels = p.v[kIChannels], columns = p.v[kIColumns];
+  // every key above any return's: a hole until a point claims the beam
+  cudaError_t err = cudaMemsetAsync(
+      keys, 0xff, sizeof(unsigned) * (size_t)channels * columns, s);
+  if (err != cudaSuccess) return (int)err;
+  const int point_blocks = (p.v[kIN] + kBinThreads - 1) / kBinThreads;
+  const int coords = p.v[kIRowHi] - p.v[kIRowLo] + p.v[kISizeY]
+      + p.v[kISizeZ];
+  bin_kernel<<<point_blocks + (coords + kBinThreads - 1) / kBinThreads,
+               kBinThreads, 0, s>>>(
+      (const int*)points, (const bool*)mask, (unsigned*)keys, (float*)cx,
+      (float*)cy, (float*)cz, p, point_blocks);
+  const int res = p.v[kIRes];
+  KeyTable table{(const unsigned*)keys, (const int*)points,
+                 (float)(p.v[kIVoxX] * res + res / 2),
+                 (float)(p.v[kIVoxY] * res + res / 2),
+                 (float)(p.v[kIVoxZ] * res + res / 2)};
+  prepare_kernel<<<(columns + 7) / 8, 256, 0, s>>>(
+      table, (float4*)beams, (float*)rowmax, channels, columns);
+  return (int)cudaGetLastError();
+}
+
+// The rows of a plain table (`rng` channels x columns floats, +inf at a
+// hole; `endpoint` (channels x columns, 3) f32 mm; `scanner` int32 mm on
+// the device) into the caller's `beams` and `rowmax`.
+extern "C" int ws_fusion_prepare(const void* rng, const void* endpoint,
+                                 const void* scanner, void* beams,
+                                 void* rowmax, int channels, int columns,
+                                 void* stream) {
+  PlainTable table{(const float*)rng, (const float*)endpoint,
+                   (const int*)scanner};
+  prepare_kernel<<<(columns + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+      table, (float4*)beams, (float*)rowmax, channels, columns);
+  return (int)cudaGetLastError();
+}
+
+// Kernel K1: sweep the window against the prepared rows (`beams`,
+// `rowmax`) and merge in place.  The general sweep (level == 0) also fills
+// the caller's `zterm` scratch, Z + 1 float4; the level sweep ignores it.
 extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
                                      const void* cx, const void* cy,
-                                     const void* cz, const void* rng,
-                                     const void* endpoint,
-                                     const void* scanner, void* beams,
-                                     void* rowmax, void* zterm,
+                                     const void* cz, const void* beams,
+                                     const void* rowmax, void* zterm,
                                      const float* consts, int X, int Y,
                                      int Z, int channels, int columns,
                                      int max_weight, int level,
@@ -590,11 +827,8 @@ extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
   auto* fx = (const float*)cx;
   auto* fy = (const float*)cy;
   auto* fz = (const float*)cz;
-  auto* bm = (float4*)beams;
-  auto* rm = (float*)rowmax;
-  prepare_kernel<<<(columns + 7) / 8, 256, 0, s>>>(
-      (const float*)rng, (const float*)endpoint, (const int*)scanner, bm, rm,
-      channels, columns);
+  auto* bm = (const float4*)beams;
+  auto* rm = (const float*)rowmax;
   if (level) {
     const int tiles = (Y + kTile - 1) / kTile;
     const dim3 grid((tiles + kLevelWarps - 1) / kLevelWarps, X);
@@ -618,6 +852,12 @@ extern "C" int ws_fusion_sweep_merge(void* value, void* weight,
 }
 
 extern "C" int ws_fusion_num_consts() { return kNumConsts; }
+
+extern "C" int ws_fusion_table_sizes(int* n) {
+  n[0] = kTNumConsts;
+  n[1] = kINumInts;
+  return 0;
+}
 
 // The largest channel count whose level-sweep rows fit the shared memory a
 // block of the current device can opt into (1,816 at the H100's 232,448

@@ -160,6 +160,20 @@ def build_beam_table(points: torch.Tensor, mask: torch.Tensor,
     return rng_tab, endpoint
 
 
+def beam_rows(rng_tab, endpoint, scanner_mm, *, columns: int):
+    """Plain version of kernel K1's prepare step: the (columns*channels, 4)
+    float32 rows (bx, by, bz, range), the endpoint relative to the scanner
+    (the f32 subtraction the sweep does; a hole's endpoint is 0) beside the
+    beam's range (+inf at a hole), and the (columns,) largest finite range
+    of each azimuth column (-inf where it has none)."""
+    rel = endpoint - scanner_mm.to(torch.float32)
+    beams = torch.cat([rel, rng_tab[:, None]], dim=1)
+    rows = rng_tab.reshape(columns, -1)
+    rowmax = torch.where(torch.isfinite(rows), rows,
+                         _f32(-math.inf, rows)).amax(dim=1)
+    return beams, rowmax
+
+
 # --------------------------------------------------------- projective sweep
 
 def _global_coords(pos, offset, size):
@@ -243,6 +257,17 @@ def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
 
     (The JAX function takes global voxel coordinates; ``relative_coords``
     computes the same f32 values from them.)"""
+    beams, _ = beam_rows(rng_tab, endpoint, scanner_mm, columns=columns)
+    return _sweep_rows(cx, cy, cz, beams, rotation, tau=tau,
+                       resolution=resolution, channels=channels,
+                       columns=columns, vfov_deg=vfov_deg)
+
+
+def _sweep_rows(cx, cy, cz, beams, rotation, *, tau, resolution, channels,
+                columns, vfov_deg):
+    """``projective_sweep_coords`` on the prepared rows ``beams``
+    (``beam_rows``): each voxel gathers its beam's relative endpoint and
+    range."""
     x, y, z, r_vox, ringf, ring, colf, col = _bins(
         cx, cy, cz, rotation, channels=channels, columns=columns,
         vfov_deg=vfov_deg)
@@ -250,11 +275,7 @@ def projective_sweep_coords(cx, cy, cz, rng_tab, endpoint, scanner_mm,
     ring_c = torch.clamp(ring, 0, channels - 1)
 
     flat = (col * channels + ring_c).to(torch.int64)
-    smm = scanner_mm.to(torch.float32)
-    r_beam = rng_tab[flat]
-    bx = endpoint[:, 0][flat] - smm[0]
-    by = endpoint[:, 1][flat] - smm[1]
-    bz = endpoint[:, 2][flat] - smm[2]
+    bx, by, bz, r_beam = (beams[:, k][flat] for k in range(4))
     shape = r_vox.shape
     return _projective_math(
         x.expand(shape), y.expand(shape), z.expand(shape), r_vox, ringf,
@@ -312,16 +333,27 @@ def _merge_planes(ev, ew, new_v, new_w, max_weight):
 def sweep_merge_plain(value, weight, cx, cy, cz, rng_tab, endpoint,
                       scanner_mm, rotation, *, tau, max_weight, resolution,
                       channels, columns, vfov_deg) -> None:
-    """Plain version of K1: sweep + merge, IN PLACE on the int16 planes,
-    x slab by x slab (at most ``_SLAB_VOXELS`` voxels of scratch at once)."""
+    """Plain version of K1 on a plain table: its rows (``beam_rows``), then
+    ``sweep_rows_plain``."""
+    beams, _ = beam_rows(rng_tab, endpoint, scanner_mm, columns=columns)
+    sweep_rows_plain(value, weight, cx, cy, cz, beams, rotation, tau=tau,
+                     max_weight=max_weight, resolution=resolution,
+                     channels=channels, columns=columns, vfov_deg=vfov_deg)
+
+
+def sweep_rows_plain(value, weight, cx, cy, cz, beams, rotation, *, tau,
+                     max_weight, resolution, channels, columns,
+                     vfov_deg) -> None:
+    """Plain version of K1's sweep on the prepared rows ``beams``: sweep +
+    merge, IN PLACE on the int16 planes, x slab by x slab (at most
+    ``_SLAB_VOXELS`` voxels of scratch at once)."""
     X, Y, Z = value.shape
     step = max(1, _SLAB_VOXELS // (Y * Z))
     for x0 in range(0, X, step):
         sl = slice(x0, min(X, x0 + step))
-        nv, nw = projective_sweep_coords(
-            cx[sl], cy, cz, rng_tab, endpoint, scanner_mm, rotation,
-            tau=tau, resolution=resolution, channels=channels,
-            columns=columns, vfov_deg=vfov_deg)
+        nv, nw = _sweep_rows(
+            cx[sl], cy, cz, beams, rotation, tau=tau, resolution=resolution,
+            channels=channels, columns=columns, vfov_deg=vfov_deg)
         ov, ow = _merge_planes(value[sl].to(torch.int32),
                                weight[sl].to(torch.int32), nv, nw,
                                max_weight)
@@ -488,58 +520,97 @@ def fusion_inputs(state: LocalMapState, points, points_mask, scanner_pos,
     falls outside the window grown by tau/2 (update_tsdf.cu:69-75); the
     beam table gates points identically.  ``x_rows=(lo, hi)``: the state
     holds only the window's array x-rows [lo, hi) (one rank's slab of the
-    multi-GPU layer), and ``cx`` covers those rows."""
+    multi-GPU layer), and ``cx`` covers those rows.  ``scanner_pos``: the
+    scanner's voxel, a tensor or three ints."""
+    _check_rows(state, size, x_rows)
+    return _table_inputs(points, points_mask, state.pos, state.offset,
+                         scanner_pos, rotation, size=size, tau=tau,
+                         resolution=resolution, channels=channels,
+                         columns=columns, vfov_deg=vfov_deg, x_rows=x_rows)
+
+
+def _check_rows(state: LocalMapState, size, x_rows) -> None:
+    """Raise where the state's planes are not the array x rows [lo, hi) of
+    ``size`` (all of them without ``x_rows``)."""
     lo, hi = (0, size[0]) if x_rows is None else x_rows
     if tuple(state.value.shape) != (hi - lo, *size[1:]):
         raise ValueError(f"state shape {tuple(state.value.shape)} != "
                          f"rows [{lo}, {hi}) of size {tuple(size)}")
-    scanner_mm = scanner_pos * resolution + resolution // 2
+
+
+def _table_inputs(points, points_mask, pos, offset, scanner_pos, rotation,
+                  *, size, tau, resolution, channels, columns, vfov_deg,
+                  x_rows):
+    """``fusion_inputs`` for the window centered at ``pos`` with ring
+    ``offset``."""
+    lo, hi = (0, size[0]) if x_rows is None else x_rows
+    scanner_mm = torch.as_tensor(scanner_pos, dtype=torch.int32,
+                                 device=points.device) * resolution \
+        + resolution // 2
     cell = torch.div(points, resolution, rounding_mode="floor")
-    points_mask = points_mask & in_bounds(cell, state.pos, size,
+    points_mask = points_mask & in_bounds(cell, pos, size,
                                           -(tau // resolution // 2))
     rng_tab, endpoint = build_beam_table(
         points, points_mask, scanner_mm, rotation, channels=channels,
         columns=columns, vfov_deg=vfov_deg)
-    cx, cy, cz = relative_coords(state.pos, state.offset, size, scanner_mm,
-                                 resolution)
+    cx, cy, cz = relative_coords(pos, offset, size, scanner_mm, resolution)
     return rng_tab, endpoint, scanner_mm, cx[lo:hi], cy, cz
 
 
+def fusion_table_plain(points, points_mask, pos, offset, scanner_pos,
+                       rotation, *, size, tau, resolution, channels, columns,
+                       vfov_deg, x_rows: tuple[int, int] | None = None):
+    """Plain version of the fusion's table step (``kernels/fusion.py``
+    ``fusion_table``): (beams, rowmax, cx, cy, cz), the rows and maxima of
+    ``beam_rows`` on ``fusion_inputs``' table and its coordinates, for the
+    window centered at ``pos`` with ring ``offset``."""
+    rng_tab, endpoint, scanner_mm, cx, cy, cz = _table_inputs(
+        points, points_mask, pos, offset, scanner_pos, rotation, size=size,
+        tau=tau, resolution=resolution, channels=channels, columns=columns,
+        vfov_deg=vfov_deg, x_rows=x_rows)
+    beams, rowmax = beam_rows(rng_tab, endpoint, scanner_mm, columns=columns)
+    return beams, rowmax, cx, cy, cz
+
+
 def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
-                           points_mask: torch.Tensor,
-                           scanner_pos: torch.Tensor,
+                           points_mask: torch.Tensor, scanner_pos,
                            rotation: torch.Tensor, *,
                            size: tuple[int, int, int], tau: int,
                            max_weight: int, resolution: int,
                            channels: int = 128, columns: int = 1024,
                            vfov_deg: float = 45.0,
                            level: bool = False,
-                           evaluator=None) -> LocalMapState:
+                           evaluator=None,
+                           x_rows: tuple[int, int] | None = None
+                           ) -> LocalMapState:
     """One projective fusion step, IN PLACE on ``state.value`` /
     ``state.weight`` (the JAX function donates ``state`` instead); returns
     the same state for call-chaining.
 
-    scanner_pos: (3,) int32 VOXEL coords; rotation: 3x3 f32 sensor->map
-    (kept on the CPU).  ``level=True`` requires the identity rotation and
-    runs K1's level sweep on the card (bit-identical to the
-    general one at R = I).  A CUDA state launches kernel K1; a CPU state
-    runs its plain version.  ``evaluator``: an
-    ``obs.profiler.RuntimeEvaluator`` that times the two parts as spans,
-    "tsdf.table" (the beam table and the sweep's coordinate grid,
-    ``fusion_inputs``) and "tsdf.sweep" (K1, level or general)."""
-    from ..kernels.fusion import fusion_sweep_merge
+    scanner_pos: the scanner's VOXEL coords, three ints (a tensor on the
+    card is read back, a sync: the app hands host ints); rotation: 3x3 f32
+    sensor->map (kept on the CPU).  ``level=True`` requires the identity
+    rotation and runs K1's level sweep on the card (bit-identical to the
+    general one at R = I).  A CUDA state runs the table step and kernel
+    K1; a CPU state runs their plain versions.  ``x_rows=(lo, hi)``: the
+    state holds only the window's array x rows [lo, hi) (a rank's slab).
+    ``evaluator``: an ``obs.profiler.RuntimeEvaluator`` that times the two
+    parts as spans, "tsdf.table" (the table step: the beam rows and the
+    sweep's coordinates, ``kernels/fusion.fusion_table``) and "tsdf.sweep"
+    (K1, level or general, on those rows)."""
+    from ..kernels.fusion import fusion_sweep, fusion_table
 
     check_fusion_config(tau, max_weight, vfov_deg)
+    _check_rows(state, size, x_rows)
     kw = dict(tau=tau, resolution=resolution, channels=channels,
               columns=columns, vfov_deg=vfov_deg)
     with _span(evaluator, "tsdf.table"):
-        rng_tab, endpoint, scanner_mm, cx, cy, cz = fusion_inputs(
-            state, points, points_mask, scanner_pos, rotation, size=size,
-            **kw)
+        beams, rowmax, cx, cy, cz = fusion_table(
+            points, points_mask, state.pos, state.offset, scanner_pos,
+            rotation, size=size, x_rows=x_rows, **kw)
     with _span(evaluator, "tsdf.sweep"):
-        fusion_sweep_merge(state.value, state.weight, cx, cy, cz, rng_tab,
-                           endpoint, scanner_mm, rotation,
-                           max_weight=max_weight, level=level, **kw)
+        fusion_sweep(state.value, state.weight, cx, cy, cz, beams, rowmax,
+                     rotation, max_weight=max_weight, level=level, **kw)
     return state
 
 

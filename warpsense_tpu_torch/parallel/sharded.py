@@ -52,7 +52,7 @@ from ..ops.registration import (CHUNK, LAYOUT_EXACT, LAYOUT_PACKED,
                                 PackedFields2, RegistrationFields, RegProblem,
                                 count_registration, init_state, stopped)
 from ..ops.tsdf import tsdf_update
-from ..ops.tsdf_projective import check_fusion_config, fusion_inputs
+from ..ops.tsdf_projective import tsdf_update_projective
 from ..utils.device import resolve_device
 
 
@@ -394,22 +394,15 @@ def tsdf_update_projective_sharded(
     """Sharded ``tsdf_update_projective``, in place on the rank's slab: the
     beam table is built from the whole cloud on every rank; kernel K1 (its
     plain version on the CPU) sweeps the rank's rows, given by their own
-    scanner-relative x coordinates, with no communication.  ``level=True``
-    runs K1's level sweep (identity rotation); otherwise K1's general
-    sweep bins with ``rotation`` (the JAX function runs its XLA sweep
-    there)."""
-    from ..kernels.fusion import fusion_sweep_merge
-
-    check_fusion_config(tau, max_weight, vfov_deg)
-    kw = dict(tau=tau, resolution=resolution, channels=channels,
-              columns=columns, vfov_deg=vfov_deg)
-    rng_tab, endpoint, scanner_mm, cx, cy, cz = fusion_inputs(
+    scanner-relative x coordinates, with no communication: the same update
+    with the slab's ``x_rows``.  ``level=True`` runs K1's level sweep
+    (identity rotation); otherwise K1's general sweep bins with
+    ``rotation`` (the JAX function runs its XLA sweep there)."""
+    return tsdf_update_projective(
         state, points, points_mask, scanner_pos, rotation, size=size,
-        x_rows=slab_rows(mesh, size[0]), **kw)
-    fusion_sweep_merge(state.value, state.weight, cx, cy, cz, rng_tab,
-                       endpoint, scanner_mm, rotation, max_weight=max_weight,
-                       level=level, **kw)
-    return state
+        tau=tau, max_weight=max_weight, resolution=resolution,
+        channels=channels, columns=columns, vfov_deg=vfov_deg, level=level,
+        x_rows=slab_rows(mesh, size[0]))
 
 
 def slam_step_sharded(state: LocalMapState, points, mask, pretransform, *,

@@ -251,11 +251,9 @@ class FastsenseApp:
         m = self.params.map
         lidar = self.params.lidar
         t0 = time.perf_counter()
-        scanner_pos = torch.as_tensor(
-            np.floor(pose_mm[:3, 3] / m.resolution).astype(np.int32),
-            device=self.device)
         tsdf_update_projective(
-            state, pts, mask, scanner_pos,
+            state, pts, mask,
+            np.floor(pose_mm[:3, 3] / m.resolution).astype(np.int32),
             torch.as_tensor(pose_mm[:3, :3], dtype=torch.float32),
             size=self.local_map.size, tau=m.tau,
             max_weight=m.max_weight_scaled, resolution=m.resolution,

@@ -166,9 +166,9 @@ class FeatsenseMapping:
             grid_rot, level = grid_rotation_for(pose_mm,
                                                 self.params.lidar.vfov)
             tsdf_update_projective_sharded(
-                self.state, pts_mm, mask, torch.as_tensor(
-                    np.floor(np.asarray(pose_mm)[:3, 3] / m.resolution)
-                    .astype(np.int32), device=self.device),
+                self.state, pts_mm, mask,
+                np.floor(np.asarray(pose_mm)[:3, 3] / m.resolution)
+                .astype(np.int32),
                 grid_rot, mesh=self.mesh, size=self.local_map.size,
                 tau=m.tau, max_weight=m.max_weight_scaled,
                 resolution=m.resolution,

@@ -3,8 +3,9 @@
 Counterpart of ``warpsense_tpu/pipeline/fusion_backend.py``: resolves the
 fusion name, picks the beam-grid attitude, and runs the projective update
 or the ray march.  For the projective update the device of the state picks
-the implementation: a CUDA state runs kernel K1 (``kernels/fusion.py``), a
-CPU state its plain version.  The ray march is plain PyTorch on either.
+the implementation: a CUDA state runs the table step and kernel K1
+(``kernels/fusion.py``), a CPU state their plain versions.  The ray march
+is plain PyTorch on either.
 
 Each projective fusion counts the grid it bins on in the process's
 ``obs.profiler.RuntimeEvaluator`` (``fusion_grid_level``,
@@ -95,9 +96,8 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
     if fusion not in ("raymarch", "projective", "projective-level",
                       "pallas"):
         raise ValueError(f"unknown fusion {fusion!r}")
-    scanner_pos = torch.as_tensor(
-        np.floor(np.asarray(pose_mm)[:3, 3] / m.resolution).astype(np.int32),
-        device=state.value.device)
+    scanner_voxel = np.floor(
+        np.asarray(pose_mm)[:3, 3] / m.resolution).astype(np.int32)
     if fusion == "raymarch":
         if max_steps is None or max_isteps is None:
             raise ValueError("raymarch fusion needs max_steps and max_isteps "
@@ -110,7 +110,9 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
             torch.tensor([0, 0, MATRIX_RESOLUTION], dtype=torch.int32),
             int_rot)
         return tsdf_update(
-            state, pts_mm, mask, scanner_pos, up, size=size, tau=m.tau,
+            state, pts_mm, mask,
+            torch.as_tensor(scanner_voxel, device=state.value.device), up,
+            size=size, tau=m.tau,
             max_weight=m.max_weight_scaled, resolution=m.resolution,
             max_steps=max_steps, max_isteps=max_isteps,
             channels=params.lidar.channels, vfov_deg=params.lidar.vfov)
@@ -121,8 +123,10 @@ def fuse_cloud(state: LocalMapState, pts_mm, mask, pose_mm: np.ndarray, *,
         grid_rot, level = grid_rotation_for(pose_mm, params.lidar.vfov)
     RuntimeEvaluator.get_instance().count(
         "fusion_grid_level" if level else "fusion_grid_attitude")
+    # the scanner's voxel stays on the host: the table step takes it by
+    # value, with no copy to the card
     return tsdf_update_projective(
-        state, pts_mm, mask, scanner_pos, grid_rot, size=size, tau=m.tau,
+        state, pts_mm, mask, scanner_voxel, grid_rot, size=size, tau=m.tau,
         max_weight=m.max_weight_scaled, resolution=m.resolution,
         channels=params.lidar.channels, columns=params.lidar.hresolution,
         vfov_deg=params.lidar.vfov, level=level, evaluator=evaluator)

@@ -157,12 +157,11 @@ class ShardedWarpsenseApp(WarpsenseApp):
         m = self.params.map
         if pose is None:
             pose = self.pose
-        scanner_pos = torch.as_tensor(
-            np.floor(np.asarray(pose)[:3, 3] / m.resolution).astype(np.int32),
-            device=self.device)
+        scanner_voxel = np.floor(
+            np.asarray(pose)[:3, 3] / m.resolution).astype(np.int32)
         grid_rot, level = grid_rotation_for(pose, self.params.lidar.vfov)
         tsdf_update_projective_sharded(
-            self.state, pts, mask, scanner_pos, grid_rot, mesh=self.mesh,
+            self.state, pts, mask, scanner_voxel, grid_rot, mesh=self.mesh,
             size=self.local_map.size, tau=m.tau,
             max_weight=m.max_weight_scaled, resolution=m.resolution,
             channels=self.params.lidar.channels,
