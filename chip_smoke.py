@@ -499,6 +499,18 @@ def case_inputs(torch, cfg, state, case, pts, mask):
         columns=cfg["columns"], vfov_deg=cfg["vfov_deg"])
 
 
+def case_rows(torch, cfg, state, case, pts, mask):
+    """(state, fusion_inputs, beams, rowmax) of one K1 case: K1's prepared
+    rows and row maxima (``beam_rows``) of ``fusion_inputs``' table, the
+    one table that K1 and its plain version are fed."""
+    from warpsense_tpu_torch.ops.tsdf_projective import beam_rows
+    state, inputs = case_inputs(torch, cfg, state, case, pts, mask)
+    rng_tab, endpoint, smm = inputs[:3]
+    beams, rowmax = beam_rows(rng_tab, endpoint, smm,
+                              columns=cfg["columns"])
+    return state, inputs, beams, rowmax
+
+
 def room_points(torch, cfg, device):
     from warpsense_tpu_torch.io.synthetic import box_room_cloud
     X, Y, Z = cfg["size"]
@@ -510,11 +522,12 @@ def room_points(torch, cfg, device):
 
 
 def check_fusion(torch, cfg, device):
-    """K1 vs plain on identical inputs (one beam table per fusion, fed to
-    both).  Returns (kernel state, per-case report)."""
+    """K1 vs plain on identical inputs (one beam table per fusion, its
+    prepared rows fed to both).  Returns (kernel state, per-case
+    report)."""
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     from warpsense_tpu_torch.map.local_map import clone_state, create_state
-    from warpsense_tpu_torch.ops.tsdf_projective import sweep_merge_plain
+    from warpsense_tpu_torch.ops.tsdf_projective import sweep_rows_plain
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
               channels=cfg["channels"], columns=cfg["columns"],
               vfov_deg=cfg["vfov_deg"])
@@ -525,13 +538,13 @@ def check_fusion(torch, cfg, device):
     st_p = clone_state(st_k)
     report = []
     for c in fusion_cases(torch):
-        sk, (rng_tab, endpoint, smm, cx, cy, cz) = case_inputs(
-            torch, cfg, st_k, c, pts, mask)
-        fusion_sweep_merge(sk.value, sk.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, c["R"], max_weight=mw,
-                           level=c["level"], **kw)
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, c["R"], max_weight=mw, **kw)
+        sk, inputs, beams, rowmax = case_rows(torch, cfg, st_k, c, pts,
+                                              mask)
+        cx, cy, cz = inputs[3:]
+        fusion_sweep_merge(sk.value, sk.weight, cx, cy, cz, beams, rowmax,
+                           c["R"], max_weight=mw, level=c["level"], **kw)
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams, c["R"],
+                         max_weight=mw, **kw)
         dv = int((st_k.value != st_p.value).sum())
         dw = int((st_k.weight != st_p.weight).sum())
         err = int((st_k.value.int() - st_p.value.int()).abs().max()) + int(
@@ -852,9 +865,12 @@ def fusion_cost(work: dict, *, channels: int, columns: int, X: int, Y: int,
 
 
 def time_fusion(torch, cfg, state, names, bounds=True):
-    """K1 times of the named fusion cases on ``state`` (each run starts from
-    a copy of it, made outside the timed region); with ``bounds``, also the
-    plain times and each case's bound, counted from its inputs."""
+    """K1 times of the named fusion cases on ``state``: K1 alone on the
+    case's prepared rows, as the app launches it after the table step
+    (each run starts from a copy of ``state``; the copy and the rows are
+    made outside the timed region); with ``bounds``, also the plain
+    sweep's times on the same rows and each case's bound, counted from its
+    table (``fusion_work`` on ``fusion_inputs``' table)."""
     from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
     device = state.value.device
     kw = dict(tau=cfg["tau"], resolution=cfg["res"],
@@ -872,22 +888,23 @@ def time_fusion(torch, cfg, state, names, bounds=True):
     for c in fusion_cases(torch):
         if c["name"] not in names:
             continue
-        _, inputs = case_inputs(torch, cfg, state, c, pts, mask)
+        _, inputs, beams, rowmax = case_rows(torch, cfg, state, c, pts,
+                                             mask)
         rng_tab, endpoint, smm, cx, cy, cz = inputs
-        args = (cx, cy, cz, rng_tab, endpoint, smm, c["R"])
         level = c["level"]
         k_ms = time_ms(torch, lambda: fusion_sweep_merge(
-            work[0], work[1], *args, max_weight=mw, level=level, **kw),
-            setup=reset)
+            work[0], work[1], cx, cy, cz, beams, rowmax, c["R"],
+            max_weight=mw, level=level, **kw), setup=reset)
         out[c["name"]] = dict(size=list(cfg["size"]), tau=cfg["tau"],
                               ms=k_ms)
         if bounds:
             from warpsense_tpu_torch.ops.tsdf_projective import (
-                fusion_work, sweep_merge_plain)
-            p_ms = time_ms(torch, lambda: sweep_merge_plain(
-                work[0], work[1], *args, max_weight=mw, **kw), setup=reset,
-                reps=5)
-            counts = fusion_work(*args, level=level, **kw)
+                fusion_work, sweep_rows_plain)
+            p_ms = time_ms(torch, lambda: sweep_rows_plain(
+                work[0], work[1], cx, cy, cz, beams, c["R"], max_weight=mw,
+                **kw), setup=reset, reps=5)
+            counts = fusion_work(cx, cy, cz, rng_tab, endpoint, smm, c["R"],
+                                 level=level, **kw)
             X, Y, Z = cfg["size"]
             cost = fusion_cost(counts, channels=cfg["channels"],
                                columns=cfg["columns"], X=X, Y=Y, Z=Z,
@@ -2147,8 +2164,8 @@ def run_offline(torch, device):
     1.0, and every volume it builds the CPU's bit for bit; each
     registration case within its bound, in the CPU run's iterations and,
     where JAX recovers it, within OFFLINE["cpu_mm"] of the CPU run's
-    average; one loop-kernel launch and one sync a registration on the
-    card."""
+    average; one launch of K2's parity mode, one loop-kernel launch and
+    one sync a registration on the card."""
     import contextlib
     import io
 
@@ -2172,7 +2189,8 @@ def run_offline(torch, device):
         after = read_launches()
         cases.setdefault(now["dev"], []).append(dict(
             {k: after[k] - before[k] for k in (
-                "reg_loop", "registrations", "reg_iterations", "reg_syncs")},
+                "fields_parity", "reg_loop", "registrations",
+                "reg_iterations", "reg_syncs")},
             ms=ms))
         return pose
 
@@ -2236,8 +2254,8 @@ def run_offline(torch, device):
                 and c["reg_iterations"] == c["cpu_iterations"]
                 and (abs(c["avg_mm"] - c["cpu_avg_mm"]) <= OFFLINE["cpu_mm"]
                      or not c["jax_recovers"])
-                and c["reg_loop"] == c["registrations"] == c["reg_syncs"]
-                == 1):
+                and c["fields_parity"] == c["reg_loop"]
+                == c["registrations"] == c["reg_syncs"] == 1):
             raise AssertionError(f"pcd_registration {name} on the card: {c}")
     if len(reg) != len(OFFLINE_JAX_AVG_MM):
         raise AssertionError(f"pcd_registration ran {list(reg)}")

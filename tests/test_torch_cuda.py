@@ -17,12 +17,13 @@ from warpsense_tpu_torch.core.config import Params
 from warpsense_tpu_torch.io.synthetic import (BoxWorld, box_room_cloud,
                                               render_scan, walk_trajectory)
 from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
-from warpsense_tpu_torch.kernels.fusion import fusion_sweep_merge
+from warpsense_tpu_torch.kernels.fusion import (fusion_sweep_merge,
+                                                fusion_table)
 from warpsense_tpu_torch.map.local_map import clone_state, create_state
 from warpsense_tpu_torch.ops import registration as treg
 from warpsense_tpu_torch.ops.tsdf import plan_raymarch
-from warpsense_tpu_torch.ops.tsdf_projective import (fusion_inputs,
-                                                     sweep_merge_plain)
+from warpsense_tpu_torch.ops.tsdf_projective import (fusion_table_plain,
+                                                     sweep_rows_plain)
 from warpsense_tpu_torch.pipeline.featsense import FeatsenseApp
 from warpsense_tpu_torch.pipeline.fusion_backend import fuse_cloud
 from warpsense_tpu_torch.pipeline.warpsense import WarpsenseApp
@@ -61,16 +62,14 @@ def test_fusion_kernel_matches_plain(cuda, size, channels, columns):
     for spos, R, level in (((0, 0, 0), eye, True), ((2, -1, 1), eye, True),
                            ((1, 0, 0), _tilt(4.0), False),
                            ((0, 1, 0), _tilt(12.0), False)):
-        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
-        inputs = fusion_inputs(st_k, pts, mask, spos, R, size=size, **kw)
-        rng_tab, endpoint, smm, cx, cy, cz = inputs
+        beams, rowmax, cx, cy, cz = fusion_table(
+            pts, mask, st_k.pos, st_k.offset, spos, R, size=size, **kw)
         before = fusion_sweep_merge.launches
-        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, R, max_weight=2048, level=level,
-                           **kw)
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, beams,
+                           rowmax, R, max_weight=2048, level=level, **kw)
         assert fusion_sweep_merge.launches == before + 1
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, R, max_weight=2048, **kw)
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams, R,
+                         max_weight=2048, **kw)
         torch.cuda.synchronize()
         assert torch.equal(st_k.value, st_p.value)
         assert torch.equal(st_k.weight, st_p.weight)
@@ -99,15 +98,13 @@ def test_fusion_level_kernel_after_shift_and_on_empty_columns(cuda, cloud):
     st_p = clone_state(st_k)
     eye = torch.eye(3)
     for spos in ((3, -2, 1), (40, -30, 15)):
-        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            st_k, pts, mask, spos, eye, size=size, **kw)
+        beams, rowmax, cx, cy, cz = fusion_table(
+            pts, mask, st_k.pos, st_k.offset, spos, eye, size=size, **kw)
         assert int(torch.argmin(cz)) != 0
-        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, eye, max_weight=2048, level=True,
-                           **kw)
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, eye, max_weight=2048, **kw)
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, beams,
+                           rowmax, eye, max_weight=2048, level=True, **kw)
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams, eye,
+                         max_weight=2048, **kw)
         torch.cuda.synchronize()
         assert torch.equal(st_k.value, st_p.value)
         assert torch.equal(st_k.weight, st_p.weight)
@@ -149,16 +146,14 @@ def test_fusion_general_kernel_matches_plain(cuda, deg, cloud):
     st_p = clone_state(st_k)
     R = _oblique(deg)
     for spos in ((3, -2, 1), (40, -30, 15)):
-        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            st_k, pts, mask, spos, R, size=size, **kw)
+        beams, rowmax, cx, cy, cz = fusion_table(
+            pts, mask, st_k.pos, st_k.offset, spos, R, size=size, **kw)
         before = fusion_sweep_merge.general_launches
-        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, R, max_weight=2048, level=False,
-                           **kw)
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, beams,
+                           rowmax, R, max_weight=2048, level=False, **kw)
         assert fusion_sweep_merge.general_launches == before + 1
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, R, max_weight=2048, **kw)
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams, R,
+                         max_weight=2048, **kw)
         torch.cuda.synchronize()
         assert torch.equal(st_k.value, st_p.value)
         assert torch.equal(st_k.weight, st_p.weight)
@@ -183,16 +178,14 @@ def test_fusion_level_past_the_default_shared_memory(cuda, channels):
     general = channels > max_level_channels()
     assert general == (channels == 2000)
     for spos in ((0, 0, 0), (5, -3, 2)):
-        spos = torch.tensor(spos, dtype=torch.int32, device=cuda)
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            st_k, pts, mask, spos, eye, size=size, **kw)
+        beams, rowmax, cx, cy, cz = fusion_table(
+            pts, mask, st_k.pos, st_k.offset, spos, eye, size=size, **kw)
         before = fusion_sweep_merge.general_launches
-        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, rng_tab,
-                           endpoint, smm, eye, max_weight=2048, level=True,
-                           **kw)
+        fusion_sweep_merge(st_k.value, st_k.weight, cx, cy, cz, beams,
+                           rowmax, eye, max_weight=2048, level=True, **kw)
         assert fusion_sweep_merge.general_launches == before + int(general)
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, eye, max_weight=2048, **kw)
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams, eye,
+                         max_weight=2048, **kw)
         torch.cuda.synchronize()
         assert torch.equal(st_k.value, st_p.value)
         assert torch.equal(st_k.weight, st_p.weight)
@@ -206,24 +199,18 @@ def test_fusion_level_past_the_default_shared_memory(cuda, channels):
 
 
 @pytest.mark.parametrize("name", SCENES)
-def test_fusion_table_kernel_matches_plain(cuda, name):
+def test_fusion_table_step_matches_plain(cuda, name):
     """The fusion's table step on the card (the bin kernel's atan2f /
     asinf bins, the atomicMin of the keys, prepare_kernel's rows, the
     coordinates) against its plain version on the card, which builds the
     table with PyTorch's own kernels: equal bit for bit, counted once."""
-    from warpsense_tpu_torch.kernels.fusion import fusion_table
-    from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
-    from warpsense_tpu_torch.ops.tsdf_projective import fusion_table_plain
     sc = scene(name, cuda)
     args, kw = table_args(sc)
-    ev = RuntimeEvaluator.get_instance()
-    counted = ev.counters().get("fusion_table_kernel", 0)
     launches = fusion_table.launches
     got = fusion_table(*args, **kw)
     want = fusion_table_plain(*args, **kw)
     torch.cuda.synchronize()
     assert fusion_table.launches == launches + 1
-    assert ev.counters()["fusion_table_kernel"] == counted + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.device == w.device
         assert torch.equal(g.contiguous().view(torch.int32),
@@ -236,8 +223,8 @@ def test_fusion_table_kernel_matches_plain(cuda, name):
 def test_projective_update_on_the_card_equals_the_plain_path(cuda, level):
     """Two fusions through ``tsdf_update_projective`` on the card (the
     table step, then K1 on its rows) against the plain path on the card
-    (``fusion_inputs``' PyTorch table, ``sweep_merge_plain``), after a
-    shift: the same planes."""
+    (``fusion_table_plain``: PyTorch's table; ``sweep_rows_plain``), after
+    a shift: the same planes."""
     from warpsense_tpu_torch.ops.tsdf_projective import \
         tsdf_update_projective
     sc = scene("ring-offset" if level else "6.0-vfov90-rolled", cuda)
@@ -250,12 +237,11 @@ def test_projective_update_on_the_card_equals_the_plain_path(cuda, level):
         tsdf_update_projective(st_k, sc["points"], sc["mask"], voxel,
                                sc["rotation"], size=sc["size"],
                                max_weight=2048, level=level, **sc["kw"])
-        rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-            st_p, sc["points"], sc["mask"], voxel, sc["rotation"],
-            size=sc["size"], **sc["kw"])
-        sweep_merge_plain(st_p.value, st_p.weight, cx, cy, cz, rng_tab,
-                          endpoint, smm, sc["rotation"], max_weight=2048,
-                          **sc["kw"])
+        beams, _, cx, cy, cz = fusion_table_plain(
+            sc["points"], sc["mask"], st_p.pos, st_p.offset, voxel,
+            sc["rotation"], size=sc["size"], **sc["kw"])
+        sweep_rows_plain(st_p.value, st_p.weight, cx, cy, cz, beams,
+                         sc["rotation"], max_weight=2048, **sc["kw"])
     torch.cuda.synchronize()
     assert torch.equal(st_k.value, st_p.value)
     assert torch.equal(st_k.weight, st_p.weight)
@@ -265,8 +251,8 @@ def test_projective_update_on_the_card_equals_the_plain_path(cuda, level):
 def test_fused_scans_build_the_table_without_a_sync(cuda, monkeypatch):
     """The app's fused scans on the card with PyTorch's sync debug mode at
     "error" inside every "tsdf.table" span: no host copy and no stream
-    sync there (it raises on one), and ``fusion_table_kernel`` counts one
-    table a fusion."""
+    sync there (it raises on one), and ``fusion_table.launches`` counts
+    one table a fusion."""
     import contextlib
 
     from warpsense_tpu_torch.obs.profiler import RuntimeEvaluator
@@ -299,7 +285,7 @@ def test_fused_scans_build_the_table_without_a_sync(cuda, monkeypatch):
     ev = RuntimeEvaluator.get_instance()
     app = WarpsenseApp(params, in_memory_map=True, capacity=2048,
                        sync_shift=True, device="cuda", profile=True)
-    before = ev.counters()
+    before, tables = ev.counters(), fusion_table.launches
     for i, s in enumerate(scans):
         app.cloud_callback(s, 0.1 * i)
     torch.cuda.synchronize()
@@ -311,7 +297,7 @@ def test_fused_scans_build_the_table_without_a_sync(cuda, monkeypatch):
 
     fusions = delta("fusion_grid_level") + delta("fusion_grid_attitude")
     assert fusions >= 3 and len(strict) == fusions
-    assert delta("fusion_table_kernel") == fusions
+    assert fusion_table.launches - tables == fusions
 
 
 def test_segment_sum_is_deterministic_on_the_card(cuda):
@@ -677,11 +663,11 @@ def test_k1_per_slab_matches_plain(cuda, world):
         plain = clone_state(whole)
         sweep_kw = dict(tau=TAU, resolution=RES, channels=128,
                         columns=1024, vfov_deg=45.0)
-        rng_tab, ends, smm, cx, cy, cz = fusion_inputs(
-            plain, pts.cpu(), mask.cpu(), spos.cpu(), R, size=size,
-            **sweep_kw)
-        sweep_merge_plain(plain.value, plain.weight, cx, cy, cz, rng_tab,
-                          ends, smm, R, max_weight=32 * 64, **sweep_kw)
+        beams, _, cx, cy, cz = fusion_table_plain(
+            pts.cpu(), mask.cpu(), plain.pos, plain.offset, spos.cpu(), R,
+            size=size, **sweep_kw)
+        sweep_rows_plain(plain.value, plain.weight, cx, cy, cz, beams, R,
+                         max_weight=32 * 64, **sweep_kw)
         before = fusion_sweep_merge.launches
         for rank in range(world):
             mesh = Mesh(None, rank, world, cuda)
@@ -775,6 +761,45 @@ def test_k2_parity_on_padded_slabs_and_the_sharded_caller(cuda):
     assert torch.equal(got, one)
 
 
+def test_register_cloud_on_the_card_takes_k2_parity_fields(cuda):
+    """``register_cloud`` and ``jacobian_stats`` on a CUDA state compute
+    their fields with K2's parity mode, one launch a call, and give what
+    the CPU state's plain fields (``precompute_fields``) give on the card,
+    bit for bit, on the planted full-range window."""
+    from warpsense_tpu_torch.map.local_map import LocalMapState
+    size = (64, 45, 37)
+    v, w = planted_window(size, 7)
+    cpu = LocalMapState(torch.from_numpy(v), torch.from_numpy(w),
+                        torch.zeros(3, dtype=torch.int32),
+                        torch.tensor([s // 2 for s in size],
+                                     dtype=torch.int32))
+    card = LocalMapState(*(t.to(cuda) for t in cpu))
+    plain = treg.RegistrationFields(
+        *(t.to(cuda) for t in treg.precompute_fields(cpu)))
+    g = torch.Generator().manual_seed(5)
+    half = torch.tensor([(s // 2 - 2) * RES for s in size])
+    pts = ((torch.rand((4000, 3), generator=g) * 2 - 1) * half).to(
+        torch.int32).to(cuda)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
+    pose = _reg_pose(1.0, (60.0, -40.0, 20.0)).to(cuda)
+    kw = dict(size=size, resolution=RES, max_iterations=8,
+              it_weight_gradient=0.1, epsilon=0.03)
+    for _ in range(2):
+        launches = fields_parity.launches
+        got = treg.register_cloud(card, pts, mask, pose, **kw)
+        assert fields_parity.launches == launches + 1
+        assert torch.equal(got, treg.register_cloud_fields(
+            plain, card.pos, card.offset, pts, mask, pose, **kw))
+    launches = fields_parity.launches
+    got = treg.jacobian_stats(card, pts, mask, pose, size=size,
+                              resolution=RES)
+    assert fields_parity.launches == launches + 1
+    want = treg.jacobian_stats_fields(plain, card.pos, card.offset, pts,
+                                      mask, pose, size=size, resolution=RES)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------ registration: the loop kernel (K3, K4)
 # A room fused by K1 at 81 x 81 x 65; the fast LM (coarse phase and gather
 # freeze, so one loop runs every K3 mode) on K2's packed and exact fields,
@@ -800,11 +825,11 @@ def reg_problems():
     pts = torch.as_tensor(box_room_cloud(6000, half, zhalf), device=cuda)
     mask = torch.ones(len(pts), dtype=torch.bool, device=cuda)
     st = create_state(REG_SIZE, TAU, 0, device=cuda, force_odd=False)
-    spos = torch.zeros(3, dtype=torch.int32, device=cuda)
-    rng_tab, endpoint, smm, cx, cy, cz = fusion_inputs(
-        st, pts, mask, spos, torch.eye(3), size=REG_SIZE, **kw)
-    fusion_sweep_merge(st.value, st.weight, cx, cy, cz, rng_tab, endpoint,
-                       smm, torch.eye(3), max_weight=2048, level=True, **kw)
+    beams, rowmax, cx, cy, cz = fusion_table(
+        pts, mask, st.pos, st.offset, (0, 0, 0), torch.eye(3),
+        size=REG_SIZE, **kw)
+    fusion_sweep_merge(st.value, st.weight, cx, cy, cz, beams, rowmax,
+                       torch.eye(3), max_weight=2048, level=True, **kw)
     common = dict(pos=st.pos, offset=st.offset, points=pts, mask=mask,
                   size=REG_SIZE, resolution=RES, tau=TAU)
     lm = dict(common, interp=True, normalize=False, lm=True, recenter=True,

@@ -342,7 +342,9 @@ def test_sweep_on_jax_table_bit_exact(deg):
 
 def test_cpu_wrapper_runs_plain_version():
     """On CPU tensors the K1 wrapper runs the plain version and does not
-    count a launch; a level call with a non-identity rotation raises."""
+    count a launch; a level call with a non-identity rotation raises, and
+    so does a call with a plain table's nine positional inputs (the
+    wrapper takes prepared rows only)."""
     pts = _room()
     mask = np.ones(len(pts), bool)
     before = fusion_sweep_merge.launches
@@ -351,6 +353,15 @@ def test_cpu_wrapper_runs_plain_version():
     assert fusion_sweep_merge.launches == before
     with pytest.raises(ValueError, match="identity"):
         _tfuse(_tfresh(), pts, mask, (0, 0, 0), _tilt(1.0), level=True)
+    st = _tfresh()
+    table = {k: v for k, v in KW.items() if k != "max_weight"}
+    rng_tab, endpoint, smm, cx, cy, cz = ttp.fusion_inputs(
+        st, torch.as_tensor(pts), torch.as_tensor(mask), (0, 0, 0),
+        torch.eye(3), **table)
+    with pytest.raises(TypeError):
+        fusion_sweep_merge(st.value, st.weight, cx, cy, cz, rng_tab,
+                           endpoint, smm, torch.eye(3), level=True,
+                           **{k: v for k, v in KW.items() if k != "size"})
 
 
 def test_fusion_dispatch():

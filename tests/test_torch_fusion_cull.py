@@ -127,7 +127,9 @@ def test_fusion_work_counts(name, level):
     work = ttp.fusion_work(*args, level=level, **KW)
     # fused voxels: the update condition holds; on a fresh map, exactly
     # the voxels that end with a nonzero weight
-    ttp.sweep_merge_plain(st.value, st.weight, *args, max_weight=2048, **KW)
+    beams, _ = ttp.beam_rows(rng_tab, endpoint, smm, columns=COLS)
+    ttp.sweep_rows_plain(st.value, st.weight, cx, cy, cz, beams, eye,
+                         max_weight=2048, **KW)
     fused = int((st.weight != 0).sum())
     assert work["fused_voxels"] == fused > 1000
     assert work["voxels"] == X * Y * Z and work["columns"] == X * Y

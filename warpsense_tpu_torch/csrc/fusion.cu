@@ -35,9 +35,7 @@
 // the beam table from the scan and prepare_kernel turns it into float4 rows
 // (bx, by, bz, range) and each azimuth column's largest finite range; then
 // the sweep (ws_fusion_sweep_merge) runs level_kernel, or
-// general_setup_kernel and general_kernel, and merges.  A caller that holds
-// a plain table (ranges and endpoints) prepares its rows with
-// ws_fusion_prepare instead.
+// general_setup_kernel and general_kernel, and merges.
 //
 // The table step replaces no TPU kernel: the JAX package builds the table
 // with XLA (ops/tsdf_projective.build_beam_table: bins, a scatter-min,
@@ -375,55 +373,20 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The rows' sources.  A plain table: ranges (+inf at a hole) and endpoints
-// (f32 mm) that the caller built, the scanner (int32 mm) on the device.
-struct PlainTable {
-  const float* rng;
-  const float* endpoint;
-  const int* scanner;
-  __device__ __forceinline__ float4 operator()(int i) const {
-    const float sx = (float)scanner[0], sy = (float)scanner[1],
-                sz = (float)scanner[2];
-    return make_float4(endpoint[3 * i] - sx, endpoint[3 * i + 1] - sy,
-                       endpoint[3 * i + 2] - sz, rng[i]);
-  }
-};
-
 // The table step's keys: a key below kHole holds the nearest point's index
-// in its low bits; a hole's endpoint is 0, so its row is (-scanner, +inf).
-// The range is the endpoint's distance as build_beam_table computes it.
+// in its low bits.
 constexpr unsigned kHole = 1u << 30;      // build_beam_table's sentinel
 constexpr unsigned kIndexBits = 17;       // the point index's bits
 
-struct KeyTable {
-  const unsigned* key;
-  const int* points;
-  float sx, sy, sz;
-  __device__ __forceinline__ float4 operator()(int i) const {
-    const unsigned k = key[i];
-    const bool hit = k < kHole;
-    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-    if (hit) {
-      const int* p = points + 3 * (k & ((1u << kIndexBits) - 1u));
-      ex = (float)p[0];
-      ey = (float)p[1];
-      ez = (float)p[2];
-    }
-    const float rx = __fsub_rn(ex, sx), ry = __fsub_rn(ey, sy),
-                rz = __fsub_rn(ez, sz);
-    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
-                               __fmul_rn(rz, rz));
-    return make_float4(rx, ry, rz,
-                       hit ? __double2float_rn(__dsqrt_rn((double)n2))
-                           : __int_as_float(0x7f800000));
-  }
-};
-
-// One warp per azimuth column of the beam table: the float4 rows (bx, by,
-// bz, range) with scanner-relative endpoints (the f32 subtraction the sweep
-// does) and the column's largest finite range (-inf where it has none).
-template <class Table>
-__global__ void prepare_kernel(Table table, float4* __restrict__ beams,
+// One warp per azimuth column of the beam table: each beam's key decoded
+// into its float4 row (bx, by, bz, range), the nearest point's endpoint
+// relative to the scanner (sx, sy, sz) beside its range as
+// build_beam_table computes it (a hole's endpoint is 0, so its row is
+// (-scanner, +inf)), and the column's largest finite range (-inf where it
+// has none).
+__global__ void prepare_kernel(const unsigned* keys, const int* points,
+                               float sx, float sy, float sz,
+                               float4* __restrict__ beams,
                                float* __restrict__ rowmax, int channels,
                                int columns) {
   const int lane = threadIdx.x & 31;
@@ -432,9 +395,23 @@ __global__ void prepare_kernel(Table table, float4* __restrict__ beams,
   float m = -__int_as_float(0x7f800000);         // -inf
   for (int k = lane; k < channels; k += 32) {
     const int i = col * channels + k;
-    const float4 b = table(i);
-    beams[i] = b;
-    if (isfinite(b.w)) m = fmaxf(m, b.w);
+    const unsigned key = keys[i];
+    const bool hit = key < kHole;
+    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
+    if (hit) {
+      const int* p = points + 3 * (key & ((1u << kIndexBits) - 1u));
+      ex = (float)p[0];
+      ey = (float)p[1];
+      ez = (float)p[2];
+    }
+    const float rx = __fsub_rn(ex, sx), ry = __fsub_rn(ey, sy),
+                rz = __fsub_rn(ez, sz);
+    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)),
+                               __fmul_rn(rz, rz));
+    const float w = hit ? __double2float_rn(__dsqrt_rn((double)n2))
+                        : __int_as_float(0x7f800000);
+    beams[i] = make_float4(rx, ry, rz, w);
+    if (isfinite(w)) m = fmaxf(m, w);
   }
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
@@ -779,26 +756,12 @@ extern "C" int ws_fusion_table(const void* points, const void* mask,
       (const int*)points, (const bool*)mask, (unsigned*)keys, (float*)cx,
       (float*)cy, (float*)cz, p, point_blocks);
   const int res = p.v[kIRes];
-  KeyTable table{(const unsigned*)keys, (const int*)points,
-                 (float)(p.v[kIVoxX] * res + res / 2),
-                 (float)(p.v[kIVoxY] * res + res / 2),
-                 (float)(p.v[kIVoxZ] * res + res / 2)};
   prepare_kernel<<<(columns + 7) / 8, 256, 0, s>>>(
-      table, (float4*)beams, (float*)rowmax, channels, columns);
-  return (int)cudaGetLastError();
-}
-
-// The rows of a plain table (`rng` channels x columns floats, +inf at a
-// hole; `endpoint` (channels x columns, 3) f32 mm; `scanner` int32 mm on
-// the device) into the caller's `beams` and `rowmax`.
-extern "C" int ws_fusion_prepare(const void* rng, const void* endpoint,
-                                 const void* scanner, void* beams,
-                                 void* rowmax, int channels, int columns,
-                                 void* stream) {
-  PlainTable table{(const float*)rng, (const float*)endpoint,
-                   (const int*)scanner};
-  prepare_kernel<<<(columns + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-      table, (float4*)beams, (float*)rowmax, channels, columns);
+      (const unsigned*)keys, (const int*)points,
+      (float)(p.v[kIVoxX] * res + res / 2),
+      (float)(p.v[kIVoxY] * res + res / 2),
+      (float)(p.v[kIVoxZ] * res + res / 2), (float4*)beams, (float*)rowmax,
+      channels, columns);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ K1 replaces the TPU kernels ``warpsense_tpu/kernels/tsdf_pallas.py``
 grid); the table step replaces the eager beam table
 (``ops/tsdf_projective.build_beam_table``, XLA in the JAX package).  CUDA
 tensors launch the kernels (or raise); CPU tensors run the plain PyTorch
-versions, ``ops/tsdf_projective.fusion_table_plain``,
-``sweep_rows_plain`` and ``sweep_merge_plain``.
+versions, ``ops/tsdf_projective.fusion_table_plain`` and
+``sweep_rows_plain``.  A fusion is ``fusion_table``, then
+``fusion_sweep_merge`` on its rows.
 """
 from __future__ import annotations
 
@@ -17,10 +18,8 @@ import math
 import torch
 
 from ..core.consts import MATRIX_RESOLUTION, WEIGHT_RESOLUTION
-from ..obs.profiler import RuntimeEvaluator
 from ..ops.tsdf_projective import (_ATAN_COEFFS, dz_per_distance,
-                                   fusion_table_plain, sweep_merge_plain,
-                                   sweep_rows_plain)
+                                   fusion_table_plain, sweep_rows_plain)
 from . import _build
 
 _VP = ctypes.c_void_p
@@ -31,11 +30,10 @@ def _lib():
     lib = _build.load("fusion")
     if lib.ws_fusion_sweep_merge.argtypes is None:
         lib.ws_fusion_sweep_merge.argtypes = [_VP] * 9 + [_I] * 7 + [_VP]
-        lib.ws_fusion_prepare.argtypes = [_VP] * 5 + [_I] * 2 + [_VP]
         lib.ws_fusion_table.argtypes = [_VP] * 13
         lib.ws_fusion_table_sizes.argtypes = [ctypes.POINTER(_I)]
-        for fn in (lib.ws_fusion_sweep_merge, lib.ws_fusion_prepare,
-                   lib.ws_fusion_table, lib.ws_fusion_num_consts,
+        for fn in (lib.ws_fusion_sweep_merge, lib.ws_fusion_table,
+                   lib.ws_fusion_num_consts,
                    lib.ws_fusion_max_channels, lib.ws_fusion_table_sizes):
             fn.restype = _I
         sizes = (_I * 2)()
@@ -96,8 +94,7 @@ def fusion_table(points, mask, pos, offset, scanner_voxel, rotation, *,
     host and nothing synchronises, and the result is the plain version's
     bit for bit.  On the CPU the plain version
     (``ops/tsdf_projective.fusion_table_plain``).  ``launches`` counts the
-    calls that launched the step, each also counted as
-    ``fusion_table_kernel`` in the process's ``RuntimeEvaluator``."""
+    calls that launched the step."""
     kw = dict(size=size, tau=tau, resolution=resolution, channels=channels,
               columns=columns, vfov_deg=vfov_deg, x_rows=x_rows)
     dev = points.device
@@ -150,7 +147,6 @@ def fusion_table(points, mask, pos, offset, scanner_voxel, rotation, *,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "the fusion's table step")
     fusion_table.launches += 1
-    RuntimeEvaluator.get_instance().count("fusion_table_kernel")
     return beams, rowmax, cx, cy, cz
 
 
@@ -173,15 +169,9 @@ def _window(value, weight) -> tuple[int, int, int]:
     return X, Y, Z
 
 
-def _check_level(rotation, level: bool) -> None:
-    if level and not torch.equal(rotation.detach().cpu().to(torch.float32),
-                                 torch.eye(3)):
-        raise ValueError("level fusion needs the identity grid rotation")
-
-
-def fusion_sweep(value, weight, cx, cy, cz, beams, rowmax, rotation, *,
-                 tau, max_weight, resolution, channels, columns, vfov_deg,
-                 level: bool) -> None:
+def fusion_sweep_merge(value, weight, cx, cy, cz, beams, rowmax, rotation,
+                       *, tau, max_weight, resolution, channels, columns,
+                       vfov_deg, level: bool) -> None:
     """Kernel K1 on prepared rows: sweep the (X, Y, Z) window given by
     per-axis scanner-relative coordinates ``cx, cy, cz`` (f32 mm, array
     order, as ``fusion_table`` or ``ops/tsdf_projective.relative_coords``
@@ -194,9 +184,13 @@ def fusion_sweep(value, weight, cx, cy, cz, beams, rowmax, rotation, *,
     ``rotation`` to be the identity; where its beam rows exceed the shared
     memory a block can opt into (``max_level_channels``), the general
     sweep runs at the identity instead, which gives the same bits
-    (csrc/fusion.cu).  Every sweep is counted on ``fusion_sweep_merge``:
-    ``launches``, and ``general_launches`` for the general sweep."""
-    _check_level(rotation, level)
+    (csrc/fusion.cu).  On the CPU the plain version,
+    ``ops/tsdf_projective.sweep_rows_plain``.  ``launches`` counts every
+    sweep that launched K1, ``general_launches`` those that ran the
+    general sweep."""
+    if level and not torch.equal(rotation.detach().cpu().to(torch.float32),
+                                 torch.eye(3)):
+        raise ValueError("level fusion needs the identity grid rotation")
     kw = dict(tau=tau, resolution=resolution, channels=channels,
               columns=columns, vfov_deg=vfov_deg)
     if value.device.type == "cpu":
@@ -236,48 +230,6 @@ def fusion_sweep(value, weight, cx, cy, cz, beams, rowmax, rotation, *,
     fusion_sweep_merge.launches += 1
     if general:
         fusion_sweep_merge.general_launches += 1
-
-
-def fusion_sweep_merge(value, weight, cx, cy, cz, rng_tab, endpoint,
-                       scanner_mm, rotation, *, tau, max_weight, resolution,
-                       channels, columns, vfov_deg, level: bool) -> None:
-    """Kernel K1 on a plain beam table: ``rng_tab`` (columns*channels,)
-    ranges (+inf at a hole) and ``endpoint`` (columns*channels, 3) f32 mm,
-    as ``ops/tsdf_projective.build_beam_table`` gives them, and the
-    scanner ``scanner_mm`` (int32 mm).  On the card ``prepare_kernel``
-    turns them into rows, then ``fusion_sweep`` sweeps and merges IN
-    PLACE; on the CPU ``sweep_merge_plain``.  ``launches`` counts every
-    sweep that launched K1 (this function's and ``fusion_sweep``'s),
-    ``general_launches`` those that ran the general sweep."""
-    _check_level(rotation, level)
-    kw = dict(tau=tau, resolution=resolution, channels=channels,
-              columns=columns, vfov_deg=vfov_deg)
-    if value.device.type == "cpu":
-        sweep_merge_plain(value, weight, cx, cy, cz, rng_tab, endpoint,
-                          scanner_mm, rotation, max_weight=max_weight, **kw)
-        return
-    if value.device.type != "cuda":
-        raise ValueError(f"unsupported device {value.device}")
-    _window(value, weight)
-    if rng_tab.numel() != channels * columns:
-        raise ValueError("beam table size != channels * columns")
-    dev = value.device
-    rng = rng_tab.to(device=dev, dtype=torch.float32).contiguous()
-    ends = endpoint.to(device=dev, dtype=torch.float32).contiguous()
-    scanner = scanner_mm.to(device=dev, dtype=torch.int32).contiguous()
-    if ends.shape != (channels * columns, 3) or scanner.numel() != 3:
-        raise ValueError("endpoint must be (channels * columns, 3) and "
-                         "scanner_mm (3,)")
-    beams = torch.empty((channels * columns, 4), dtype=torch.float32,
-                        device=dev)
-    rowmax = torch.empty(columns, dtype=torch.float32, device=dev)
-    rc = _lib().ws_fusion_prepare(
-        rng.data_ptr(), ends.data_ptr(), scanner.data_ptr(),
-        beams.data_ptr(), rowmax.data_ptr(), channels, columns,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "fusion kernel K1's prepare step")
-    fusion_sweep(value, weight, cx, cy, cz, beams, rowmax, rotation,
-                 max_weight=max_weight, level=level, **kw)
 
 
 fusion_sweep_merge.launches = 0

@@ -8,11 +8,10 @@ registration.cu:14-257 and tsdf_registration.cpp:28-105):
   reference's scheme — value/weight and the sign-change-rejecting
   central-difference gradient in three int32 planes, the un-normalized
   voxel gradient, the rotation centered on the initial translation and the
-  linear Levenberg ramp; the apps and the sharded registration compute the
-  planes through ``kernels/fields.fields_parity`` (CUDA kernel K2's parity
-  mode on the card), whose plain version, run for a CPU state, is the roll
-  formulation here (``jacobian_stats`` and ``register_cloud`` run it on
-  any device);
+  linear Levenberg ramp; every caller computes the planes through
+  ``kernels/fields.fields_parity`` (CUDA kernel K2's parity mode on the
+  card), whose plain version, run for a CPU state, is the roll
+  formulation here;
 * fast mode: the map's value and per-axis gradient are precomputed once per map change
   into one int32 plane (byte layout v:8|gx:8|gy:8|gz:8, ``PackedFields``)
   or two exact planes (``PackedFields2``); CUDA kernel K2
@@ -127,11 +126,12 @@ def jacobian_stats_fields(fields: RegistrationFields, pos, offset, points,
 def jacobian_stats(state: LocalMapState, points, mask, total_transform, *,
                    size, resolution: int, normalize_gradient: bool = False):
     """One iteration's statistics straight from the map state, as the JAX
-    package's parity-test API takes them: ``precompute_fields``, then
-    ``jacobian_stats_fields`` (the hot path computes the fields once a map
-    change and reuses them)."""
+    package's parity-test API takes them: the parity fields
+    (``kernels/fields.fields_parity``), then ``jacobian_stats_fields`` (the
+    hot path computes the fields once a map change and reuses them)."""
+    from ..kernels.fields import fields_parity
     return jacobian_stats_fields(
-        precompute_fields(state), state.pos, state.offset, points, mask,
+        fields_parity(state), state.pos, state.offset, points, mask,
         total_transform, size=size, resolution=resolution,
         normalize_gradient=normalize_gradient)
 
@@ -140,11 +140,13 @@ def register_cloud(state: LocalMapState, points, mask, pretransform, *,
                    size, resolution: int, max_iterations: int,
                    it_weight_gradient: float, epsilon: float,
                    mode: str = "parity") -> torch.Tensor:
-    """Full GN registration against a map state; the refined 4x4 pose
-    (float32, on the device of ``pretransform``).  ``mode`` as in
+    """Full GN registration against a map state, on its parity fields
+    (``kernels/fields.fields_parity``); the refined 4x4 pose (float32, on
+    the device of ``pretransform``).  ``mode`` as in
     ``register_cloud_fields``."""
+    from ..kernels.fields import fields_parity
     return register_cloud_fields(
-        precompute_fields(state), state.pos, state.offset, points, mask,
+        fields_parity(state), state.pos, state.offset, points, mask,
         pretransform, size=size, resolution=resolution,
         max_iterations=max_iterations, it_weight_gradient=it_weight_gradient,
         epsilon=epsilon, mode=mode)

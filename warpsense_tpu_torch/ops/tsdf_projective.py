@@ -330,17 +330,6 @@ def _merge_planes(ev, ew, new_v, new_w, max_weight):
     return out_v, out_w
 
 
-def sweep_merge_plain(value, weight, cx, cy, cz, rng_tab, endpoint,
-                      scanner_mm, rotation, *, tau, max_weight, resolution,
-                      channels, columns, vfov_deg) -> None:
-    """Plain version of K1 on a plain table: its rows (``beam_rows``), then
-    ``sweep_rows_plain``."""
-    beams, _ = beam_rows(rng_tab, endpoint, scanner_mm, columns=columns)
-    sweep_rows_plain(value, weight, cx, cy, cz, beams, rotation, tau=tau,
-                     max_weight=max_weight, resolution=resolution,
-                     channels=channels, columns=columns, vfov_deg=vfov_deg)
-
-
 def sweep_rows_plain(value, weight, cx, cy, cz, beams, rotation, *, tau,
                      max_weight, resolution, channels, columns,
                      vfov_deg) -> None:
@@ -598,7 +587,7 @@ def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
     parts as spans, "tsdf.table" (the table step: the beam rows and the
     sweep's coordinates, ``kernels/fusion.fusion_table``) and "tsdf.sweep"
     (K1, level or general, on those rows)."""
-    from ..kernels.fusion import fusion_sweep, fusion_table
+    from ..kernels.fusion import fusion_sweep_merge, fusion_table
 
     check_fusion_config(tau, max_weight, vfov_deg)
     _check_rows(state, size, x_rows)
@@ -609,8 +598,9 @@ def tsdf_update_projective(state: LocalMapState, points: torch.Tensor,
             points, points_mask, state.pos, state.offset, scanner_pos,
             rotation, size=size, x_rows=x_rows, **kw)
     with _span(evaluator, "tsdf.sweep"):
-        fusion_sweep(state.value, state.weight, cx, cy, cz, beams, rowmax,
-                     rotation, max_weight=max_weight, level=level, **kw)
+        fusion_sweep_merge(state.value, state.weight, cx, cy, cz, beams,
+                           rowmax, rotation, max_weight=max_weight,
+                           level=level, **kw)
     return state
 
 

@@ -3,9 +3,9 @@
 Counterpart of ``warpsense_tpu/pipeline/fusion_backend.py``: resolves the
 fusion name, picks the beam-grid attitude, and runs the projective update
 or the ray march.  For the projective update the device of the state picks
-the implementation: a CUDA state runs the table step and kernel K1
-(``kernels/fusion.py``), a CPU state their plain versions.  The ray march
-is plain PyTorch on either.
+the implementation: a CUDA state runs the table step and kernel K1 on its
+rows (``kernels/fusion.fusion_table``, then ``fusion_sweep_merge``), a CPU
+state their plain versions.  The ray march is plain PyTorch on either.
 
 Each projective fusion counts the grid it bins on in the process's
 ``obs.profiler.RuntimeEvaluator`` (``fusion_grid_level``,

@@ -73,9 +73,9 @@ class WarpsenseApp:
     "registration" and its "fields", "shift" and its phases (see
     ``map.local_map.LocalMap``), each until the work it launched is done,
     with no synchronisation of its own.  The fields-cache counters
-    (``fields_cache_hit``, ``fields_cache_miss``), the fusion-grid
-    counters (``fusion_grid_level``, ``fusion_grid_attitude``) and, on the
-    card, the table step's (``fusion_table_kernel``) always count.
+    (``fields_cache_hit``, ``fields_cache_miss``) and the fusion-grid
+    counters (``fusion_grid_level``, ``fusion_grid_attitude``) always
+    count.
     """
 
     def __init__(self, params: Params, map_path: str | Path | None = None,
