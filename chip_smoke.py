@@ -16,6 +16,12 @@ Phases (each raises on failure; nothing falls back to the CPU):
    required; then the same cases at configs/default.yaml's shapes
    (625 x 625 x 391, tau 1000 mm, its max_weight), which the parity and
    featsense apps run;
+3b. the preprocessing kernel (one launch of csrc/preprocess.cu) against
+   its plain version on the card at the apps' shapes (32,766 points in
+   fast mode, 32,768 snapped) and snapped at 100 mm; 0 mismatches
+   required; each app shape's time between CUDA events, its device time
+   and launches under torch.profiler, a call and a sync on the host
+   clock, beside the plain version's as the app ran it and its bound;
 4. fields kernel K2 (packed, exact and parity) against its plain versions
    on the fused map (also with its weight plane at another offset from a
    16-byte boundary than its value plane: the wrapper stages an aligned
@@ -208,6 +214,9 @@ JAX_BEAM_TABLE_LINE = 117
 # the table step's launches, one each a call: a memset of the keys, the
 # bin kernel, prepare_kernel (as the profiler names them)
 TABLE_KERNELS = ("bin_kernel", "prepare_kernel", "Memset")
+# the line of the JAX package's preprocess, which the preprocessing kernel
+# replaces (XLA there)
+JAX_PREPROCESS_LINE = 27
 # H100 SXM peaks (NVIDIA data sheet) against which bound_ms is counted
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -649,6 +658,97 @@ def check_fusion_table(torch, cfg, device):
                  library_ms=None, **bound(nbytes, 0, ms))
         out[c["name"]] = t
         log(f"[time table {c['name']}]", json.dumps(t))
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    return out
+
+
+def preprocess_inputs(torch, capacity, device, seed=5):
+    """One rendered 128 x 1024 scan as the app feeds it: a uniform draw of
+    ``capacity`` of its points in their order, valid where nonzero, and a
+    pose (mm) off the origin, on the host."""
+    import numpy as np
+
+    from warpsense_tpu_torch.io.synthetic import BoxWorld, render_scan
+    rng = np.random.default_rng(seed)
+    sensor = np.eye(4)
+    sensor[:3, 3] = (1.5, -0.8, 0.3)
+    scan = render_scan(BoxWorld.default(), sensor, channels=128,
+                       columns=1024, noise_std=0.002, rng=rng)
+    flat = scan.reshape(-1, 3).astype(np.float32)
+    flat = flat[np.sort(rng.choice(len(flat), capacity, replace=False))]
+    a = 0.3
+    pose = np.eye(4, dtype=np.float32)
+    pose[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+    pose[:3, 3] = (1500.0, -800.0, 300.0)
+    return (torch.as_tensor(flat, device=device),
+            torch.as_tensor(np.any(flat != 0.0, axis=1), device=device),
+            pose)
+
+
+def check_preprocess(torch, device):
+    """The preprocessing kernel (``kernels/preprocess.preprocess``, one
+    launch of ``csrc/preprocess.cu``) against its plain version on the
+    card (``preprocess_plain``, the pose a card tensor) at the apps'
+    shapes, APP's 32,766 points in fast mode (``snap`` off) and PARITY's
+    32,768 snapped, and snapped at 100 mm: points and mask equal to the
+    bit (``max_abs_err``, the largest |kernel - plain| over both and
+    every case, reads 0).  Then at each app shape: ``ms``, one call between CUDA events
+    (median of REPS); ``device_us``, its launch's device time under
+    torch.profiler, which must count one launch a call; ``host_ms``, a
+    call and a sync on the host clock; and the plain version as the app
+    ran it (the pose copied to the card, then the eager ops),
+    ``plain_ms`` and ``plain_host_ms``.  Its floor: the bytes it must move
+    (the points and valid bytes read, the points and mask written) at
+    HBM_BYTES_PER_S."""
+    from warpsense_tpu_torch.kernels.preprocess import preprocess
+    from warpsense_tpu_torch.ops.preprocess import preprocess_plain
+    out = {"cases": []}
+    for name, n, snap, res in (("fast", APP["capacity"], False, APP["res"]),
+                               ("parity", PARITY["capacity"], True,
+                                PARITY["res"]),
+                               ("res100", APP["capacity"], True, 100)):
+        cloud, valid, pose = preprocess_inputs(torch, n, device)
+        kw = dict(resolution=res, capacity=n, snap=snap)
+
+        def step():
+            return preprocess(cloud, valid, pose, **kw)
+
+        def plain():
+            return preprocess_plain(cloud, valid,
+                                    torch.as_tensor(pose, device=device),
+                                    **kw)
+
+        got, want = step(), plain()
+        bad = [int((g != w).sum()) for g, w in zip(got, want)]
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(got, want))
+        case = dict(name=name, n=n, snap=snap, res=res,
+                    unique=int(want[1].sum()), mismatch=sum(bad),
+                    max_abs_err=err)
+        log("[preprocess]", json.dumps(case))
+        out["cases"].append(case)
+        if any(bad):
+            raise AssertionError(f"the preprocessing kernel disagrees with "
+                                 f"its plain version: {case}")
+        if name == "res100":
+            continue
+
+        def synced(fn):
+            return lambda: (fn(), torch.cuda.synchronize())
+
+        dev_us, per_call = kernel_profile(torch, step, ("preprocess_kernel",))
+        if round(per_call["preprocess_kernel"]) != 1:
+            raise AssertionError(f"the preprocessing kernel launched "
+                                 f"{per_call} a call, not once")
+        ms = time_ms(torch, step)
+        t = dict(ms=ms, device_us=dev_us["preprocess_kernel"],
+                 host_ms=time_host_ms(synced(step), reps=REPS),
+                 plain_ms=time_ms(torch, plain),
+                 plain_host_ms=time_host_ms(synced(plain), reps=REPS),
+                 launches=round(per_call["preprocess_kernel"]),
+                 library_ms=None, **bound(2 * 13 * n, 0, ms))
+        out[name] = t
+        log(f"[time preprocess {name}]", json.dumps(t))
     out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
     return out
 
@@ -1970,6 +2070,7 @@ def reset_launches() -> None:
     from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
     from warpsense_tpu_torch.kernels.fusion import (fusion_sweep_merge,
                                                     fusion_table)
+    from warpsense_tpu_torch.kernels.preprocess import preprocess
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
     from warpsense_tpu_torch.ops.registration import \
@@ -1977,6 +2078,7 @@ def reset_launches() -> None:
     fusion_sweep_merge.launches = 0
     fusion_sweep_merge.general_launches = 0
     fusion_table.launches = 0
+    preprocess.launches = 0
     fields_packed.launches = 0
     fields_packed.staged_copies = 0
     fields_parity.launches = 0
@@ -1990,8 +2092,9 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """K1's launches ("fusion", of which "fusion_general" ran the general
-    sweep), the table step's ("fusion_table"), K2's ("fields", and its aligned copies "fields_staged"; its
-    parity mode's "fields_parity" and "fields_parity_staged"), the loop
+    sweep), the table step's ("fusion_table"), the preprocessing
+    kernel's ("preprocess"), K2's ("fields", and its aligned copies
+    "fields_staged"; its parity mode's "fields_parity" and "fields_parity_staged"), the loop
     kernel's ("reg_loop", which runs K3 and K4), the sharded loop's
     ("shard_iter": its fused K4 + K3 iteration, launched from the host or
     replayed in a captured chunk; "shard_replays" and "shard_captures"
@@ -2001,12 +2104,14 @@ def read_launches() -> dict:
     from warpsense_tpu_torch.kernels.fields import fields_packed, fields_parity
     from warpsense_tpu_torch.kernels.fusion import (fusion_sweep_merge,
                                                     fusion_table)
+    from warpsense_tpu_torch.kernels.preprocess import preprocess
     from warpsense_tpu_torch.kernels.registration import (reg_loop,
                                                           shard_iter)
     from warpsense_tpu_torch.ops.registration import run_registration
     return {"fusion": fusion_sweep_merge.launches,
             "fusion_general": fusion_sweep_merge.general_launches,
             "fusion_table": fusion_table.launches,
+            "preprocess": preprocess.launches,
             "fields": fields_packed.launches,
             "fields_staged": fields_packed.staged_copies,
             "fields_parity": fields_parity.launches,
@@ -2859,7 +2964,7 @@ def _sharded_rank(rank, world, backend, store, out_dir, cfg):
             cloud = torch.as_tensor(
                 scans[0].reshape(-1, 3)[:cfg["capacity"]], device=device)
             valid = torch.any(cloud != 0, dim=1)
-            pts, mask = preprocess(cloud, valid, torch.eye(4, device=device),
+            pts, mask = preprocess(cloud, valid, torch.eye(4),
                                    resolution=cfg["res"],
                                    capacity=cfg["capacity"], snap=False)
             kw = dict(size=cfg["size"], tau=600, max_weight=32 * 64,
@@ -3215,6 +3320,7 @@ def main() -> int:
     phase("build", build_kernels)
     state, k1 = phase("fusion_check", check_fusion, torch, FULL, device)
     table = phase("fusion_table", check_fusion_table, torch, FULL, device)
+    pre = phase("preprocess", check_preprocess, torch, device)
     k2 = phase("fields_check", check_fields_all, torch, state, FULL["tau"],
                device)
     k1_times = phase("fusion_times", time_fusion, torch, FULL, state,
@@ -3355,6 +3461,16 @@ def main() -> int:
                  "plain_host_ms", "launches_by_kernel"),
          "cases": {f"{k}_{w}": t[k] for w, t in (("full", table), (
              "default", table_default)) for k in ("level", "tilt")}},
+        {"name": "preprocess", "route": "cuda",
+         "source": "warpsense_tpu_torch/csrc/preprocess.cu",
+         "launched_as": "preprocess_kernel",
+         "replaces": "none: XLA, warpsense_tpu/ops/preprocess.py:"
+                     + str(JAX_PREPROCESS_LINE),
+         "launches": app["launches"]["preprocess"],
+         "launches_by_path": {k: v["preprocess"] for k, v in paths.items()},
+         "max_abs_err": pre["max_abs_err"],
+         **entry(pre["fast"], "device_us", "host_ms", "plain_host_ms"),
+         "cases": {k: pre[k] for k in ("fast", "parity")}},
         {"name": "fields_K2", "route": "cuda",
          "source": "warpsense_tpu_torch/csrc/fields.cu",
          "replaces": "warpsense_tpu/kernels/fields_pallas.py:79",

@@ -316,6 +316,177 @@ def test_segment_sum_is_deterministic_on_the_card(cuda):
     assert bool(((a.cpu() - want).abs() <= bound).all())
 
 
+# ---------------------------------------------------------- preprocessing
+
+def _preprocess_cloud(seed, n, res):
+    """A cloud of ``n`` points (meters) and its valid mask that holds what
+    the kernel must get right: zero rows, near points (the AND quirk),
+    NaN and inf rows, voxels shared by many points in scattered input
+    order, negative coordinates on and one ulp off the voxel floors,
+    kept points beyond the sentinel key and past the int32 range."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((n, 3), np.float32)
+    pts[:, :2] = rng.uniform(-35.0, 35.0, (n, 2))
+    pts[:, 2] = rng.uniform(-3.0, 6.0, n)
+    k = n // 64
+    pts[:k] = 0.0                                       # padding rows
+    pts[k:2 * k] = rng.uniform(-4.0, 0.29, (k, 3))      # near: all < 0.3
+    pts[2 * k:3 * k, 2] = rng.uniform(0.3, 2.0, k)      # not near
+    pts[2 * k:3 * k, :2] = rng.uniform(-4.0, 0.29, (k, 2))
+    rows = rng.choice(np.arange(3 * k, n), 12 * k, replace=False)
+    nan, inf, dup, edge = np.split(rows, [k // 2, k, 7 * k])
+    pts[nan, rng.integers(0, 3, len(nan))] = np.nan
+    pts[inf, rng.integers(0, 3, len(inf))] = np.where(
+        rng.random(len(inf)) < 0.5, np.inf, -np.inf)
+    # a few voxels, each hit by many points spread through the cloud
+    centers = rng.integers(-200, 200, (8, 3)) * res + res // 2
+    jitter = rng.uniform(-0.45, 0.45, (len(dup), 3)) * res
+    pts[dup] = ((centers[rng.integers(0, 8, len(dup))] + jitter)
+                / 1000.0).astype(np.float32)
+    # negative floors: -j * res mm, exactly and one float32 ulp either side
+    floors = (-(rng.integers(1, 400, (len(edge), 3)) * res)
+              / 1000.0).astype(np.float32)
+    step = rng.integers(-1, 2, (len(edge), 3))
+    pts[edge] = np.where(step < 0, np.nextafter(floors, np.float32(-1e9)),
+                         np.where(step > 0,
+                                  np.nextafter(floors, np.float32(1e9)),
+                                  floors))
+    far = rng.choice(np.arange(3 * k, n), 6 if n >= 1000 else 0,
+                     replace=False)
+    pts[far] = np.array([[1.5e6, 2.0, 1.0], [1.5e6, 2.0, 1.0],
+                         [2.0, -1.5e6, 3.0], [1e7, 1.0, 1.0],
+                         [1e36, 1.0, 1.0], [-3e6, -3e6, 1e7]])[:len(far)]
+    valid = np.any(pts != 0.0, axis=1)
+    valid[rng.random(n) < 0.1] = False
+    return pts, valid
+
+
+def _preprocess_poses(seed):
+    """A sensor pose, and one whose int32 products wrap and whose
+    translation saturates to_int_mat's conversion on the card."""
+    from warpsense_tpu_torch.core.geometry import rodrigues
+    rng = np.random.default_rng(50 + seed)
+    R = rodrigues(torch.as_tensor(rng.normal(0.0, 0.4, 3),
+                                  dtype=torch.float32)).numpy()
+    plain = np.eye(4, dtype=np.float32)
+    plain[:3, :3] = R
+    plain[:3, 3] = rng.uniform(-20000.0, 20000.0, 3)
+    wrap = plain.copy()
+    wrap[:3, :3] = R * 1.9
+    wrap[:3, 3] = (7.0e4, -9.0e4, 1.0e9)
+    return plain, wrap
+
+
+# (points, capacity): the apps' two capacities, a cloud under its
+# capacity (rows = N), a capacity under the unique voxels (the tail cut),
+# one point past a CTA, one CTA, one point
+PREPROCESS_SHAPES = ((32766, 32766), (32768, 32768), (5000, 8192),
+                     (6000, 700), (2049, 2049), (2048, 4096), (1, 4))
+
+
+@pytest.mark.parametrize("res", [64, 100])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("snap", [True, False])
+def test_preprocess_kernel_matches_plain(cuda, snap, seed, res):
+    """The preprocessing kernel against ``preprocess_plain`` on the card
+    (PyTorch's own ops, the pose a card tensor as the reference holds it):
+    equal points and mask in every shape and both poses, one launch a
+    call, and no sync (the sync debug mode raises on one)."""
+    from warpsense_tpu_torch.kernels.preprocess import preprocess
+    from warpsense_tpu_torch.ops.preprocess import preprocess_plain
+    for n, capacity in PREPROCESS_SHAPES:
+        pts, valid = _preprocess_cloud(seed, n, res)
+        cloud = torch.as_tensor(pts, device=cuda)
+        ok = torch.as_tensor(valid, device=cuda)
+        for pose in _preprocess_poses(seed):
+            kw = dict(resolution=res, capacity=capacity, snap=snap)
+            launches = preprocess.launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, got_mask = preprocess(cloud, ok, pose, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert preprocess.launches == launches + 1
+            want, want_mask = preprocess_plain(
+                cloud, ok, torch.as_tensor(pose, device=cuda), **kw)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (min(n, capacity), 3)
+            assert torch.equal(got_mask, want_mask), (n, capacity)
+            assert torch.equal(got, want), (n, capacity)
+            if n > 1000:
+                assert 0 < int(want_mask.sum()) < min(n, capacity) \
+                    or capacity == 700
+
+
+def test_preprocess_kernel_on_an_all_invalid_cloud(cuda):
+    """No kept point: every row zero, the mask empty, as the plain
+    version's; and the wrapper refuses a card pose, a cloud past one
+    cluster and a CPU cloud."""
+    from warpsense_tpu_torch.kernels.preprocess import preprocess
+    from warpsense_tpu_torch.ops.preprocess import preprocess_plain
+    pts, _ = _preprocess_cloud(2, 32766, 64)
+    cloud = torch.as_tensor(pts, device=cuda)
+    ok = torch.zeros(32766, dtype=torch.bool, device=cuda)
+    pose = _preprocess_poses(2)[0]
+    for snap in (True, False):
+        got, mask = preprocess(cloud, ok, pose, resolution=64,
+                               capacity=32766, snap=snap)
+        want, want_mask = preprocess_plain(
+            cloud, ok, torch.as_tensor(pose, device=cuda), resolution=64,
+            capacity=32766, snap=snap)
+        assert torch.equal(got, want) and torch.equal(mask, want_mask)
+        assert not bool(mask.any()) and not bool(got.any())
+    with pytest.raises(ValueError, match="host"):
+        preprocess(cloud, ok, torch.as_tensor(pose, device=cuda),
+                   resolution=64, capacity=32766)
+    big = torch.zeros((32769, 3), device=cuda)
+    with pytest.raises(ValueError, match="32768"):
+        preprocess(big, torch.ones(32769, dtype=torch.bool, device=cuda),
+                   pose, resolution=64, capacity=32769)
+    with pytest.raises(ValueError, match="CUDA"):
+        preprocess(cloud.cpu(), ok.cpu(), pose, resolution=64,
+                   capacity=32766)
+
+
+def test_app_preprocesses_each_scan_in_one_launch_without_a_sync(
+        cuda, monkeypatch):
+    """The app's scans on the card with the sync debug mode at "error"
+    around each preprocessing call: one kernel launch a scan, no sync,
+    the host pose passed as the app holds it."""
+    import warpsense_tpu_torch.pipeline.warpsense as wmod
+    from warpsense_tpu_torch.kernels import preprocess as kpre
+    orig = wmod.preprocess
+    calls = []
+
+    def strict(cloud, valid, pose, **kw):
+        assert isinstance(pose, np.ndarray)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(cloud, valid, pose, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls.append(kw["snap"])
+
+    monkeypatch.setattr(wmod, "preprocess", strict)
+    params = Params.from_dict({
+        "map": {"max_distance": 0.6, "resolution": 128, "max_weight": 10,
+                "size": {"x": 12, "y": 10, "z": 6}, "shift": 8.0,
+                "update_distance": 0.05},
+        "registration": {"max_iterations": 20, "epsilon": 0.03,
+                         "it_weight_gradient": 0.1, "mode": "fast"},
+        "lidar": {"channels": 16, "hresolution": 128}})
+    app = WarpsenseApp(params, in_memory_map=True, capacity=2048,
+                       sync_shift=True, device="cuda")
+    launches = kpre.preprocess.launches
+    for i, s in enumerate(_walk_scans(4, 16, 128)):
+        app.cloud_callback(s, 0.1 * i)
+    torch.cuda.synchronize()
+    app.terminate()
+    assert calls == [False] * 4
+    assert kpre.preprocess.launches - launches == 4
+
+
 def _plain_fields(st, mode):
     return {"packed": lambda: treg.precompute_fields_packed(st, tau=TAU),
             "exact": lambda: treg.precompute_fields_packed2(st),

@@ -53,3 +53,53 @@ def test_preprocess_bit_exact(snap, seed):
         assert 0 < n <= capacity
         if capacity == 4096:
             assert n < capacity                         # tail is masked
+
+
+def test_preprocess_sends_cpu_clouds_to_the_plain_version(monkeypatch):
+    """A CPU cloud takes ``preprocess_plain`` (the kernel's wrapper is
+    never called), with the host pose as a numpy array or a CPU tensor,
+    as the apps pass it on either route; the kernel's wrapper refuses a
+    CPU cloud rather than fall back."""
+    from warpsense_tpu_torch.kernels import preprocess as kpre
+    from warpsense_tpu_torch.ops.preprocess import preprocess_plain
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU cloud reached the kernel's wrapper")
+
+    flat, valid = _scan(0)
+    pose = _pose(0)
+    cloud, ok = torch.as_tensor(flat), torch.as_tensor(valid)
+    want = preprocess_plain(cloud, ok, torch.as_tensor(pose), resolution=64,
+                            capacity=700, snap=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpre.preprocess(cloud, ok, pose, resolution=64, capacity=700)
+    monkeypatch.setattr(kpre, "preprocess", refuse)
+    for host_pose in (pose, torch.as_tensor(pose)):
+        got = preprocess(cloud, ok, host_pose, resolution=64, capacity=700,
+                         snap=False)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_int_mat_is_to_int_mat_on_the_host(dtype):
+    """The kernel's pose, ``kernels/preprocess.int_mat``: to_int_mat's top
+    three rows wherever the int32 conversion is exact; beyond the int32
+    range it saturates and NaN goes to 0, as CUDA's float-to-int
+    conversion does; a card pose or another shape is refused."""
+    from warpsense_tpu_torch.core.geometry import to_int_mat
+    from warpsense_tpu_torch.kernels.preprocess import int_mat
+    for seed in range(3):
+        pose = _pose(seed).astype(dtype)
+        want = to_int_mat(torch.as_tensor(pose))[:3].numpy()
+        np.testing.assert_array_equal(int_mat(pose), want)
+        np.testing.assert_array_equal(int_mat(torch.as_tensor(pose)), want)
+    pose = np.eye(4, dtype=dtype)
+    pose[:3, 3] = (7.0e4, -9.0e4, np.nan)
+    m = int_mat(pose)
+    assert m.dtype == np.int32 and m.shape == (3, 4)
+    assert list(m[:, 3]) == [2 ** 31 - 1, -2 ** 31, 0]
+    with pytest.raises(ValueError, match="4x4"):
+        int_mat(np.eye(3))
+    with pytest.raises(ValueError, match="host"):
+        int_mat(torch.eye(4, device="meta"))

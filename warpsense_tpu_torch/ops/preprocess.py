@@ -3,8 +3,11 @@
 Counterpart of ``warpsense_tpu/ops/preprocess.py`` (``App::preprocess``,
 src/warpsense/app.cpp:120-148), bit-exact with it.  The cloud keeps a static
 shape: voxel keys are sorted, duplicates masked, and valid points compacted
-to the front.  ``jnp.lexsort((cz, cy, cx))`` becomes three stable sorts
-(least significant key first), and the compaction stays a stable argsort.
+to the front.  ``preprocess`` runs ``preprocess_plain`` on CPU tensors and
+the CUDA kernel (``kernels/preprocess.preprocess``, one launch, no sync) on
+CUDA tensors; both give these bits.  In the plain version
+``jnp.lexsort((cz, cy, cx))`` becomes three stable sorts (least
+significant key first), and the compaction stays a stable argsort.
 """
 from __future__ import annotations
 
@@ -21,14 +24,31 @@ def _lexsort3(cx: torch.Tensor, cy: torch.Tensor,
     return order[torch.argsort(cx[order], stable=True)]
 
 
-def preprocess(points_m: torch.Tensor, valid: torch.Tensor,
-               pose: torch.Tensor, *, resolution: int, capacity: int,
+def preprocess(points_m: torch.Tensor, valid: torch.Tensor, pose, *,
+               resolution: int, capacity: int,
                snap: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """``preprocess_plain`` on a CPU cloud, the CUDA kernel on a CUDA one
+    (``kernels/preprocess.preprocess``: one launch, no host copy, no
+    sync).  ``pose``: the 4x4 float32 pose (mm translation) on the host, a
+    numpy array or a CPU tensor, on either route."""
+    if points_m.device.type == "cpu":
+        return preprocess_plain(points_m, valid, torch.as_tensor(pose),
+                                resolution=resolution, capacity=capacity,
+                                snap=snap)
+    from ..kernels.preprocess import preprocess as kernel
+    return kernel(points_m, valid, pose, resolution=resolution,
+                  capacity=capacity, snap=snap)
+
+
+def preprocess_plain(points_m: torch.Tensor, valid: torch.Tensor,
+                     pose: torch.Tensor, *, resolution: int, capacity: int,
+                     snap: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """points_m: (N, 3) float32 meters (padded rows arbitrary); valid: (N,)
     bool; pose: 4x4 float32 (mm translation), all on one device.
 
-    Returns (points (capacity, 3) int32 mm, mask (capacity,) bool):
-    deduplicated voxel representatives in the map frame, valid first.
+    Returns (points (min(N, capacity), 3) int32 mm, mask (min(N,
+    capacity),) bool): deduplicated voxel representatives in the map
+    frame, valid first.
     ``snap=True`` returns voxel centers (reference parity); ``snap=False``
     keeps the first point's true mm coordinates per voxel (fast mode)."""
     x, y, z = points_m[:, 0], points_m[:, 1], points_m[:, 2]

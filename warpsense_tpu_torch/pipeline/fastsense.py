@@ -168,8 +168,7 @@ class FastsenseApp:
         valid = torch.as_tensor(
             np.concatenate([np.any(flat != 0.0, axis=1),
                             np.zeros(len(pad), bool)]), device=self.device)
-        pts, mask = preprocess(cloud, valid,
-                               torch.as_tensor(self.pose, device=self.device),
+        pts, mask = preprocess(cloud, valid, self.pose,
                                resolution=m.resolution, capacity=self.capacity)
 
         if not self.initialized:

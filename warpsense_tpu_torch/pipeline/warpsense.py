@@ -199,8 +199,7 @@ class WarpsenseApp:
             prof.start("preprocessing")
         # fast mode keeps TRUE point coordinates through dedup; parity
         # mode snaps them to voxel centers like the reference
-        pts, mask = preprocess(cloud, valid,
-                               torch.as_tensor(self.pose, device=self.device),
+        pts, mask = preprocess(cloud, valid, self.pose,
                                resolution=m.resolution,
                                capacity=self.capacity, snap=not fast)
         if prof:
